@@ -8,18 +8,24 @@ one JSON line; any failure exits non-zero:
 2. build    — every kernel source compiled with nvcc, in parallel;
 3. main path — ``generate(200_000, seed=7)`` indexed by
    ``HistoricalGraphStore.build`` on the card, then Algorithm 1
-   (64 batched snapshots and one single snapshot, kernel fold against
-   host fold, one snapshot against the full-replay oracle) and fused
+   (64 batched snapshots, 320 batched snapshots inside one checkpoint
+   window — one fold of some 330 layers — and one single snapshot,
+   kernel fold against host fold, one snapshot against the full-replay
+   oracle) and fused
    plans (slice T=128, components T=128, pagerank T=32, triangles T=16)
    against the staged executor.  Kernel launch counts are zeroed just
    before and read just after; a kernel of the path that never launched
    fails the run;
 4. kernels  — each kernel against its plain PyTorch version, bit for
-   bit, on the inputs the main path gave it and at larger headline
+   bit, on the inputs each step of the main path gave it and at headline
    shapes; device times from CUDA events, beside the plain version's,
-   one library call's where there is one, and the bound.
+   one library call's where there is one, and the bound: the larger of
+   the bytes the function must move over the memory rate and the
+   operations these inputs need over the TF32 peak, both counted from
+   the data.
 
-The line before the last is ``{"kernels": [...]}``, the last
+Phase 1 also prints ``nvidia-smi``'s own line.  The line before the
+last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  ``--device cpu --events N`` rehearses
 phase 3 on the CPU with the plain versions and prints no result.
 """
@@ -101,19 +107,20 @@ def fused_and_staged(q, what: str, exact: bool = True):
 
 
 class Recorder:
-    """Keeps the first inputs each kernel wrapper is given on the main
-    path, so phase 4 can hold the kernel against its plain version on
-    exactly those inputs."""
+    """Keeps the first inputs each kernel wrapper is given in each step
+    (``tag``) of the main path, so phase 4 can hold the kernel against its
+    plain version on exactly those inputs."""
 
     def __init__(self):
-        self.inputs = {}
+        self.inputs = {}  # (kernel name, tag) -> args
+        self.tag = "main path"
         self._undo = []
 
     def wrap(self, mod, fn: str, name: str):
         orig = getattr(mod, fn)
 
         def shim(*args):
-            self.inputs.setdefault(name, [a.clone() for a in args])
+            self.inputs.setdefault((name, self.tag), [a.clone() for a in args])
             return orig(*args)
 
         setattr(mod, fn, shim)
@@ -169,6 +176,28 @@ def main_path(device, n_events: int, recorder=None):
     emit(phase="main_path", check="snapshots", T=len(ts),
          host_fold_seconds=t2 - t1, kernel_fold_seconds=t3 - t2,
          nodes_present=[int(g.present.sum()) for g in kern[::16]])
+
+    # one (span, checkpoint) group of 320 timepoints: one batched fold of
+    # the group's hierarchy path plus one eventlist layer per timepoint
+    si = store.tgi.spans[len(store.tgi.spans) // 2]
+    w0, w1 = si.checkpoint_ts[1], si.checkpoint_ts[2] - 1
+    wide = np.unique(np.linspace(w0, w1, 320).astype(np.int64))
+    if len(wide) < 256:
+        fail(f"checkpoint window [{w0}, {w1}] too narrow for a wide group")
+    t1 = time.perf_counter()
+    host = store.snapshots(wide, use_kernel=False)
+    t2 = time.perf_counter()
+    if recorder is not None:
+        recorder.tag = "main path, one wide group"
+    kern = store.snapshots(wide, use_kernel=True)
+    t3 = time.perf_counter()
+    if recorder is not None:
+        recorder.tag = "main path"
+    for j, (a, b) in enumerate(zip(kern, host)):
+        same_state(a, b, f"wide group snapshots[{j}] t={wide[j]}")
+    emit(phase="main_path", check="snapshots one group", T=len(wide),
+         window=[int(w0), int(w1)], host_fold_seconds=t2 - t1,
+         kernel_fold_seconds=t3 - t2)
 
     # fused plans over the last eighth of the history
     q0, q1 = lo + 7 * span // 8, hi
@@ -266,6 +295,16 @@ def overlay_bytes(args, batch: bool) -> int:
     return h * P * S + tmask.numel() * 4 + needed * (1 + 4 * K) + out * tmask.shape[1]
 
 
+def motif_work(adj) -> tuple:
+    """Operations and bytes the motif function needs on ``adj``: (A.A)[i,j]
+    only where A[i,j] != 0 (2N operations each), then that product and
+    the column sum (2 per nonzero); the adjacency read once, the (T, N)
+    int32 output written once."""
+    T, N, _ = adj.shape
+    nnz = int((adj != 0).sum())
+    return 2 * nnz * N + 2 * nnz, adj.numel() * 4 + T * N * 4
+
+
 def kernel_case(name, args, tag):
     """Run one kernel on ``args`` against its plain version: bit-identical
     or fail; returns the times, bound and error."""
@@ -277,19 +316,19 @@ def kernel_case(name, args, tag):
     library = None
     if name == "delta_overlay.overlay":
         kern, plain = ov_ops.overlay, ov_ref.overlay_ref
-        bound_by, work = "bytes", overlay_bytes(args, batch=False)
+        ops, nbytes = 0, overlay_bytes(args, batch=False)
         shape = dict(h=args[0].shape[0], P=args[0].shape[1], S=args[0].shape[2],
                      K=args[2].shape[-1])
     elif name == "delta_overlay.overlay_batch":
         kern, plain = ov_ops.overlay_batch, ov_ref.overlay_batch_ref
-        bound_by, work = "bytes", overlay_bytes(args, batch=True)
+        ops, nbytes = 0, overlay_bytes(args, batch=True)
         shape = dict(h=args[0].shape[0], P=args[0].shape[1], S=args[0].shape[2],
                      K=args[2].shape[-1], T=args[3].shape[1])
     else:
         kern, plain = motif_ops.temporal_motif, motif_ref.motif_ref
         T, N, _ = args[0].shape
-        bound_by, work = "operations", 2 * T * N ** 3 + 2 * T * N ** 2
-        shape = dict(T=T, N=N)
+        ops, nbytes = motif_work(args[0])
+        shape = dict(T=T, N=N, nnz=int((args[0] != 0).sum()))
 
         def library():
             a = args[0]
@@ -303,11 +342,9 @@ def kernel_case(name, args, tag):
     err = max_err(got, want)
     if err != 0:
         fail(f"{name} ({tag}) differs from its plain version: max err {err}")
-    if bound_by == "bytes":
-        bound_ms = work / HBM_BYTES_PER_S * 1e3
-    else:
-        in_out = args[0].numel() * 4 + got[0].numel() * 4
-        bound_ms = max(work / TF32_OPS_PER_S, in_out / HBM_BYTES_PER_S) * 1e3
+    ops_ms, bytes_ms = ops / TF32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms > bytes_ms else "bytes"
     row = dict(shape=shape, max_abs_err=err, ms=device_ms(lambda: kern(*args)),
                plain_ms=device_ms(lambda: plain(*args)), bound_ms=bound_ms,
                bound_by=bound_by,
@@ -386,6 +423,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     emit(phase="device", name=name, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    print(smi, flush=True)
 
     # 2. build every kernel source, in parallel
     from repro_torch.kernels import _build
@@ -410,12 +448,14 @@ def main() -> int:
     rows = []
     headlines = headline_inputs(dev)
     for kname, (source, replaces) in SOURCES.items():
-        inputs = recorder.inputs.get(kname)
+        inputs = recorder.inputs.get((kname, "main path"))
         if inputs is None:
             fail(f"no main-path inputs recorded for {kname}")
         row = kernel_case(kname, inputs, "main path")
-        headline = {tag: kernel_case(n, a, tag)
-                    for n, tag, a in headlines if n == kname}
+        others = [(tag, a) for (n, tag), a in recorder.inputs.items()
+                  if n == kname and tag != "main path"]
+        others += [(tag, a) for n, tag, a in headlines if n == kname]
+        headline = {tag: kernel_case(kname, a, tag) for tag, a in others}
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=launches[kname],
                          max_abs_err=max([row["max_abs_err"]] + [
@@ -425,7 +465,6 @@ def main() -> int:
                          library_ms=row["library_ms"], shape=row["shape"],
                          headline=headline))
     print(json.dumps({"kernels": rows}), flush=True)
-    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

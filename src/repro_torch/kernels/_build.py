@@ -3,14 +3,16 @@
 Each ``kernels/<name>/<name>.cu`` exposes ``extern "C"`` launchers that
 take raw device pointers and a CUDA stream and return a ``cudaError_t``.
 ``nvcc`` compiles a source into ``build/repro_torch_ext/lib<name>-<hash>.so``
-under the repository root (the hash is the source's, so an edited kernel
-is rebuilt); no PyTorch header is compiled, so a build takes seconds.
+under the repository root (the hash covers the source, the flags and
+the nvcc version, so a change to any of them is rebuilt); no PyTorch
+header is compiled, so a build takes seconds.
 Builds start at first use, or all at once, in parallel, through
 ``build()``.  A failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,8 +37,18 @@ def source(name: str) -> Path:
 
 
 def library(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The built library's path, named by a hash of the source, the
+    flags and the compiler's version, so a change to any of them builds
+    anew."""
+    h = hashlib.sha256(source(name).read_bytes())
+    h.update("\0".join((*NVCC_FLAGS, _nvcc_version())).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def _nvcc_version() -> str:
+    return subprocess.run([_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
 
 
 def _nvcc() -> str:

@@ -15,198 +15,94 @@
 // the neutral accumulator (valid 0, present 0, attrs -1) and folds the layers
 // i with tmask[i][t] != 0, the clear included from layer 0 on.
 //
-// Bound: memory.  Each slot reads h * (2 + 4K) bytes and writes 2 + 4K bytes
-// (T times that for the batch), with no reuse across slots, so the design is
-// one thread per slot, consecutive threads on consecutive slots (coalesced
-// int8 and int32 loads), the K attrs kept in registers, and no padding of S:
-// the last block masks the ragged edge.  A layer whose valid byte is 0 cannot
-// change the attrs, so its attrs are not read at all.  The batch kernel reads
-// each slot's h layers once into shared memory and folds all T timepoints
-// from there, instead of re-reading them T times.  It writes T outputs per
-// slot, most of its traffic, and a thread's T*K attrs lie at a stride of T*K
-// ints from its neighbour's, so the block stages a chunk of timepoints in
-// shared memory and writes the block's outputs together, in contiguous runs.
+// Design: one thread per slot, consecutive threads on consecutive slots
+// (coalesced int8 loads), any h, T and K, no padding of S (the last block
+// masks the ragged edge), no shared memory.  Valid and present fold first;
+// then each attribute folds on its own, repeating the present fold, so the
+// accumulator is two scalars whatever K is.  The repeated reads of a slot's
+// layers hit the cache; device memory sees each layer about once.  A layer
+// whose valid byte is 0 cannot change the attrs, so its attrs are not read;
+// the batch kernel tests tmask (the same for the whole warp) before it
+// reads a layer, so a layer outside timepoint t costs no load of the slot.
+// Outputs are written once each, directly.
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int MAX_K = 16;  // K is a template constant: the attrs live in
-                           // registers and every loop over them unrolls
-
-template <int K>
 __global__ void overlay_kernel(const int8_t* __restrict__ valid,
                                const int8_t* __restrict__ present,
                                const int32_t* __restrict__ attrs,
                                int8_t* __restrict__ o_valid,
                                int8_t* __restrict__ o_present,
-                               int32_t* __restrict__ o_attrs,
-                               int h, long long n) {
+                               int32_t* __restrict__ o_attrs, int h,
+                               long long n, int K) {
   const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (s >= n) return;
   int acc_v = valid[s] != 0;
   int8_t acc_p = present[s];
-  int32_t acc_a[K > 0 ? K : 1];
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    acc_a[k] = attrs[s * K + k];
   for (int i = 1; i < h; ++i) {
-    const long long off = i * n + s;
-    const int vi = valid[off] != 0;
-    if (vi) {
-      acc_p = present[off];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int32_t ai = attrs[off * K + k];
-        if (ai != -1) acc_a[k] = ai;
-      }
-    }
-    if (acc_p == 0) {
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        acc_a[k] = -1;
-    }
+    const int vi = valid[i * n + s] != 0;
+    if (vi) acc_p = present[i * n + s];
     acc_v |= vi;
   }
   o_valid[s] = (int8_t)acc_v;
   o_present[s] = acc_p;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    o_attrs[s * K + k] = acc_a[k];
+  for (int k = 0; k < K; ++k) {
+    int8_t p = present[s];
+    int32_t a = attrs[s * K + k];
+    for (int i = 1; i < h; ++i) {
+      const long long off = i * n + s;
+      if (valid[off] != 0) {
+        p = present[off];
+        const int32_t ai = attrs[off * K + k];
+        if (ai != -1) a = ai;
+      }
+      if (p == 0) a = -1;
+    }
+    o_attrs[s * K + k] = a;
+  }
 }
 
-// Shared memory of the batch kernel: tmask as h*T bytes (rounded up to 16);
-// per thread its h layers, laid out [layer][k][thread] so that threads of a
-// warp hit consecutive banks; and per thread the outputs of one chunk of TC
-// timepoints, [thread][t][k] with rows padded to an odd length TC*K+1 (no
-// bank conflicts), which the block then writes out as contiguous runs (a
-// slot's TC*K attrs are contiguous in the (n, T, K) output).
-struct BatchSmem {  // byte offsets into the dynamic shared memory
-  size_t mask, a, v, p, out_a, out_v, out_p, total;
-};
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~(size_t)15;
-}
-
-__host__ __device__ inline BatchSmem batch_smem(int h, int K, int T, int TC,
-                                                int B) {
-  BatchSmem o;
-  size_t off = 0;
-  o.mask = off;  off += align16((size_t)h * T);
-  o.a = off;     off += align16((size_t)h * K * B * 4);
-  o.v = off;     off += align16((size_t)h * B);
-  o.p = off;     off += align16((size_t)h * B);
-  o.out_a = off; off += align16((size_t)B * (TC * K + 1) * 4);
-  o.out_v = off; off += align16((size_t)B * TC);
-  o.out_p = off; off += align16((size_t)B * TC);
-  o.total = off;
-  return o;
-}
-
-template <int K>
 __global__ void overlay_batch_kernel(const int8_t* __restrict__ valid,
                                      const int8_t* __restrict__ present,
                                      const int32_t* __restrict__ attrs,
                                      const int32_t* __restrict__ tmask,
                                      int8_t* __restrict__ o_valid,
                                      int8_t* __restrict__ o_present,
-                                     int32_t* __restrict__ o_attrs,
-                                     int h, long long n, int T, int TC) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int B = blockDim.x, tid = threadIdx.x;
-  const BatchSmem lay = batch_smem(h, K, T, TC, B);
-  const int row_a = TC * K + 1;  // padded row of s_out_a
-  int8_t* s_mask = reinterpret_cast<int8_t*>(smem + lay.mask);
-  int32_t* s_a = reinterpret_cast<int32_t*>(smem + lay.a);
-  int8_t* s_v = reinterpret_cast<int8_t*>(smem + lay.v);
-  int8_t* s_p = reinterpret_cast<int8_t*>(smem + lay.p);
-  int32_t* s_out_a = reinterpret_cast<int32_t*>(smem + lay.out_a);
-  int8_t* s_out_v = reinterpret_cast<int8_t*>(smem + lay.out_v);
-  int8_t* s_out_p = reinterpret_cast<int8_t*>(smem + lay.out_p);
-  for (int j = tid; j < h * T; j += B) s_mask[j] = tmask[j] != 0;
-  const long long s0 = blockIdx.x * (long long)B;
-  const long long s = s0 + tid;
-  const int nb = (int)min((long long)B, n - s0);  // slots of this block
-  const bool active = tid < nb;
-  if (active) {
+                                     int32_t* __restrict__ o_attrs, int h,
+                                     long long n, int K, int T) {
+  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  for (int t = 0; t < T; ++t) {
+    int acc_v = 0;
+    int8_t acc_p = 0;
     for (int i = 0; i < h; ++i) {
-      const long long off = i * n + s;
-      const int8_t vi = valid[off] != 0;
-      s_v[i * B + tid] = vi;
-      s_p[i * B + tid] = present[off];
-      for (int k = 0; k < K; ++k)
-        s_a[((size_t)i * K + k) * B + tid] = vi ? attrs[off * K + k] : -1;
+      const int vi = tmask[i * T + t] != 0 && valid[i * n + s] != 0;
+      if (vi) acc_p = present[i * n + s];
+      acc_v |= vi;
     }
-  }
-  __syncthreads();
-  for (int t0 = 0; t0 < T; t0 += TC) {
-    const int tc = min(TC, T - t0);
-    if (active) {
-      for (int dt = 0; dt < tc; ++dt) {
-        const int t = t0 + dt;
-        int acc_v = 0;
-        int8_t acc_p = 0;
-        int32_t acc_a[K > 0 ? K : 1];
-#pragma unroll
-        for (int k = 0; k < K; ++k) acc_a[k] = -1;
-        for (int i = 0; i < h; ++i) {
-          const int vi = s_v[i * B + tid] && s_mask[i * T + t];
-          if (vi) {
-            acc_p = s_p[i * B + tid];
-#pragma unroll
-            for (int k = 0; k < K; ++k) {
-              const int32_t ai = s_a[((size_t)i * K + k) * B + tid];
-              if (ai != -1) acc_a[k] = ai;
-            }
-          }
-          if (acc_p == 0) {
-#pragma unroll
-            for (int k = 0; k < K; ++k) acc_a[k] = -1;
-          }
-          acc_v |= vi;
+    o_valid[s * T + t] = (int8_t)acc_v;
+    o_present[s * T + t] = acc_p;
+    for (int k = 0; k < K; ++k) {
+      int8_t p = 0;
+      int32_t a = -1;
+      for (int i = 0; i < h; ++i) {
+        const long long off = i * n + s;
+        if (tmask[i * T + t] != 0 && valid[off] != 0) {
+          p = present[off];
+          const int32_t ai = attrs[off * K + k];
+          if (ai != -1) a = ai;
         }
-        s_out_v[tid * TC + dt] = (int8_t)acc_v;
-        s_out_p[tid * TC + dt] = acc_p;
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          s_out_a[tid * row_a + dt * K + k] = acc_a[k];
+        if (p == 0) a = -1;
       }
+      o_attrs[(s * T + t) * K + k] = a;
     }
-    __syncthreads();
-    // the block's chunk: slot j's tc*K attrs sit at ((s0+j)*T + t0)*K
-    const int run_a = tc * K;
-    for (int e = tid; e < nb * run_a; e += B) {
-      const int j = e / run_a, r = e % run_a;
-      o_attrs[((s0 + j) * T + t0) * K + r] = s_out_a[j * row_a + r];
-    }
-    for (int e = tid; e < nb * tc; e += B) {
-      const int j = e / tc, r = e % tc;
-      const long long o = (s0 + j) * T + t0 + r;
-      o_valid[o] = s_out_v[j * TC + r];
-      o_present[o] = s_out_p[j * TC + r];
-    }
-    __syncthreads();
   }
 }
 
 constexpr int THREADS = 256;
-constexpr int BATCH_THREADS = 128;
-constexpr size_t SMEM_DEFAULT = 48 * 1024;
-constexpr size_t SMEM_MAX = 227 * 1024;
-
-// Calls f(std::integral_constant<int, K>) for the runtime k in [0, MAX_K].
-template <int K, typename F>
-int with_k(int k, F&& f) {
-  if constexpr (K > MAX_K) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    if (k == K) return f(std::integral_constant<int, K>{});
-    return with_k<K + 1>(k, f);
-  }
-}
 
 }  // namespace
 
@@ -221,16 +117,12 @@ const char* error_string(int code) {
 int overlay_launch(const void* valid, const void* present, const void* attrs,
                    void* o_valid, void* o_present, void* o_attrs, int h,
                    long long n, int K, void* stream) {
-  if (h < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  if (h < 1 || n < 1 || K < 0) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-  return with_k<0>(K, [&](auto kc) {
-    overlay_kernel<decltype(kc)::value>
-        <<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-            (const int8_t*)valid, (const int8_t*)present,
-            (const int32_t*)attrs, (int8_t*)o_valid, (int8_t*)o_present,
-            (int32_t*)o_attrs, h, n);
-    return (int)cudaGetLastError();
-  });
+  overlay_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)valid, (const int8_t*)present, (const int32_t*)attrs,
+      (int8_t*)o_valid, (int8_t*)o_present, (int32_t*)o_attrs, h, n, K);
+  return (int)cudaGetLastError();
 }
 
 // + tmask: (h, T) int32; outputs (n, T) and (n, T, K).
@@ -238,29 +130,13 @@ int overlay_batch_launch(const void* valid, const void* present,
                          const void* attrs, const void* tmask, void* o_valid,
                          void* o_present, void* o_attrs, int h, long long n,
                          int K, int T, void* stream) {
-  if (h < 1 || K < 0 || K > MAX_K || n < 1 || T < 1)
-    return (int)cudaErrorInvalidValue;  // K also bounds the smem sizing
-  // a chunk of timepoints per slot spans >= 128 bytes of attrs when it can
-  const int TC = min(T, max(1, 32 / max(K, 1)));
-  int threads = BATCH_THREADS;
-  while (threads > 32 && batch_smem(h, K, T, TC, threads).total > SMEM_DEFAULT)
-    threads /= 2;
-  const size_t smem = batch_smem(h, K, T, TC, threads).total;
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  return with_k<0>(K, [&](auto kc) {
-    auto* kernel = overlay_batch_kernel<decltype(kc)::value>;
-    if (smem > SMEM_DEFAULT) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        (const int8_t*)valid, (const int8_t*)present, (const int32_t*)attrs,
-        (const int32_t*)tmask, (int8_t*)o_valid, (int8_t*)o_present,
-        (int32_t*)o_attrs, h, n, T, TC);
-    return (int)cudaGetLastError();
-  });
+  if (h < 1 || n < 1 || K < 0 || T < 1) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  overlay_batch_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)valid, (const int8_t*)present, (const int32_t*)attrs,
+      (const int32_t*)tmask, (int8_t*)o_valid, (int8_t*)o_present,
+      (int32_t*)o_attrs, h, n, K, T);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -15,7 +15,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.delta_overlay import ref
 
 LAUNCHES = {"overlay": 0, "overlay_batch": 0}
-MAX_K = 16  # attrs kept in registers per slot (MAX_K in delta_overlay.cu)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -46,9 +45,9 @@ def _stacks(valid, present, attrs):
                         f"{attrs.dtype}")
     if not valid.device == present.device == attrs.device:
         raise ValueError("overlay inputs lie on different devices")
-    if valid.numel() == 0 or attrs.shape[-1] > MAX_K:
-        raise ValueError(f"overlay kernel needs h, P, S >= 1 and K <= {MAX_K}, "
-                         f"got {tuple(attrs.shape)}")
+    if valid.numel() == 0:
+        raise ValueError(f"overlay kernel needs h, P, S >= 1, got "
+                         f"{tuple(attrs.shape)}")
     return valid.contiguous(), present.contiguous(), attrs.contiguous()
 
 

@@ -6,8 +6,11 @@
 // Replaces the Pallas TPU kernel _motif_kernel / motif_pallas in
 // src/repro/kernels/temporal_motif/temporal_motif.py.
 //
-// Bound: operations.  The product is 2*T*N^3 multiply-adds against T*N^2
-// inputs read.  Design: a tiled shared-memory product per t; each block
+// Work: the function needs (A.A)[i][j] only where A[i][j] != 0, 2*N
+// operations for each of the nnz edges, against T*N^2 floats read once; on
+// sparse graphs the bytes bound it.  This kernel does the dense 2*T*N^3
+// multiply-adds all the same (sparse work is a later step).
+// Design: a tiled shared-memory product per t; each block
 // owns a 64x64 tile of A.A, accumulated in float32 registers (4x4 per
 // thread, 16-deep k tiles).  Every entry of A.A is an integer <= N, exact in
 // float32 for N < 2^24.  The epilogue multiplies each entry by A[i][j] and

@@ -14,7 +14,7 @@ from repro_torch.core.delta import Delta, delta_sum
 from repro_torch.kernels.delta_overlay import ops
 
 OVERLAY_GRID = [(2, 1, 256, 1), (4, 3, 256, 4), (8, 2, 512, 2), (3, 2, 300, 3),
-                (5, 2, 777, 4)]
+                (5, 2, 777, 4), (3, 1, 256, 20)]
 BATCH_GRID = [(2, 1, 256, 1, 1), (4, 2, 256, 3, 4), (6, 2, 300, 2, 3),
               (8, 1, 512, 2, 8), (5, 2, 777, 4, 9)]
 

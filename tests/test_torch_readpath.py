@@ -77,6 +77,20 @@ def test_snapshots_kernel_fold_matches_reference(stores):
         _same_state(got[j], ref.snapshot(int(ts[j]), use_kernel=True))
 
 
+def test_snapshots_kernel_fold_of_one_wide_group(stores):
+    """Some 300 timepoints inside one checkpoint window fold as one group
+    of some 300 layers; the kernel fold == the reference's host fold."""
+    ref, port = stores
+    si = port.tgi.spans[len(port.tgi.spans) // 2]
+    ts = np.unique(np.linspace(si.checkpoint_ts[0] + 1, si.checkpoint_ts[1] - 1,
+                               300).astype(np.int64))
+    assert len(ts) > 250
+    port.tgi.invalidate_caches()
+    for g, w in zip(port.snapshots(ts, use_kernel=True),
+                    ref.snapshots(ts, use_kernel=False)):
+        _same_state(g, w)
+
+
 def test_reference_batched_kernel_fold_takes_the_wrong_axis(stores):
     """The reference's ``_fold_group`` kernel branch slices the
     (P, S, T, K) attrs with ``[..., j]`` (the K axis): past T > K it
