@@ -11,18 +11,23 @@ one JSON line; any failure exits non-zero:
    (64 batched snapshots, 320 batched snapshots inside one checkpoint
    window — one fold of some 330 layers — and one single snapshot,
    kernel fold against host fold, one snapshot against the full-replay
-   oracle) and fused
+   oracle), fused
    plans (slice T=128, components T=128, pagerank T=32, triangles T=16)
-   against the staged executor.  Kernel launch counts are zeroed just
-   before and read just after; a kernel of the path that never launched
-   fails the run;
-4. kernels  — each kernel against its plain PyTorch version, bit for
-   bit, on the inputs each step of the main path gave it and at headline
-   shapes; device times from CUDA events, beside the plain version's,
-   one library call's where there is one, and the bound: the larger of
-   the bytes the function must move over the memory rate and the
-   operations these inputs need over the TF32 peak, both counted from
-   the data.
+   against the staged executor, ``style="kernel"`` degree (the series at
+   the components step's 128 points and one point, against the host
+   replay; a repeated run served from the device-operand cache), and the
+   dense analytics kernels ``temporal_pagerank`` / ``temporal_cc`` on
+   the triangles step's dense stack against the fused ``pagerank`` /
+   ``components`` plans.  Kernel launch counts are zeroed just before
+   and read just after; a kernel of the path that never launched fails
+   the run;
+4. kernels  — each kernel against its plain PyTorch version (bit for
+   bit; PageRank within atol=1e-6, rtol=1e-5), on the inputs each step
+   of the main path gave it and at headline shapes; device times from
+   CUDA events, beside the plain version's, one library call's where
+   there is one, and the bound: the larger of the bytes the function
+   must move over the memory rate and the operations these inputs need
+   over the peak rate for their type, both counted from the data.
 
 Phase 1 also prints ``nvidia-smi``'s own line.  The line before the
 last is ``{"kernels": [...]}``, the last
@@ -48,7 +53,10 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak (data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM FP32 CUDA-core peak, no tensor cores (data sheet)
+INT32_OPS_PER_S = 33.5e12  # H100 SXM5 INT32 peak (Hopper architecture white paper)
 PAGERANK_ATOL = 1e-5  # f32 device vs f64 host (taf/compile.py PageRankOp)
+DENSE_PR_TOL = dict(atol=1e-6, rtol=1e-5)  # f32 sums in another order
 
 
 def emit(**obj):
@@ -134,7 +142,9 @@ class Recorder:
 def main_path(device, n_events: int, recorder=None):
     from repro_torch.data.temporal_graph_gen import generate, naive_state_at
     from repro_torch.kernels.delta_overlay import ops as ov_ops
+    from repro_torch.kernels.temporal_cc import ops as cc_ops
     from repro_torch.kernels.temporal_motif import ops as motif_ops
+    from repro_torch.kernels.temporal_pagerank import ops as pr_ops
     from repro_torch.taf import HistoricalGraphStore
     from repro_torch.taf import compile as tc
 
@@ -147,13 +157,17 @@ def main_path(device, n_events: int, recorder=None):
          nodes=int(events.n_nodes), time_range=[int(lo), int(hi)],
          generate_seconds=t_gen, build_seconds=time.perf_counter() - t0 - t_gen,
          config=dict(vars(store.cfg)), device=str(store.tgi.device))
-    for counts in (ov_ops.LAUNCHES, motif_ops.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    kernel_ops = {"delta_overlay": ov_ops, "temporal_motif": motif_ops,
+                  "temporal_pagerank": pr_ops, "temporal_cc": cc_ops}
+    for mod in kernel_ops.values():
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
     if recorder is not None:
         recorder.wrap(ov_ops, "overlay", "delta_overlay.overlay")
         recorder.wrap(ov_ops, "overlay_batch", "delta_overlay.overlay_batch")
         recorder.wrap(motif_ops, "temporal_motif", "temporal_motif.motif")
+        recorder.wrap(pr_ops, "temporal_pagerank", "temporal_pagerank.pagerank")
+        recorder.wrap(cc_ops, "temporal_cc", "temporal_cc.cc")
 
     # Algorithm 1: 4 windows of 16 timepoints, so checkpoint groups batch
     span = hi - lo
@@ -211,17 +225,103 @@ def main_path(device, n_events: int, recorder=None):
         tc.pagerank(), style="temporal",
         points=np.linspace(q0, q1 - 1, 32).astype(np.int64)), "pagerank T=32",
         exact=False)
-    fused_and_staged(sub.filter(node_ids=range(1500)).node_compute(
-        tc.triangles(), style="temporal",
-        points=np.linspace(q0, q1 - 1, 16).astype(np.int64)), "triangles T=16")
+    sub16 = sub.filter(node_ids=range(1500))
+    ts16 = np.linspace(q0, q1 - 1, 16).astype(np.int64)
+    fused_and_staged(sub16.node_compute(tc.triangles(), style="temporal",
+                                        points=ts16), "triangles T=16")
+    kernel_style_degree(device, sub.materialize().operand,
+                        np.linspace(q0, q1 - 1, 128).astype(np.int64))
+    dense_analytics(device, sub16.materialize().operand, ts16)
 
     if recorder is not None:
         recorder.restore()
-    launches = {f"delta_overlay.{k}": v for k, v in ov_ops.LAUNCHES.items()}
-    launches.update({f"temporal_motif.{k}": v for k, v in motif_ops.LAUNCHES.items()})
+    launches = {f"{name}.{k}": v for name, mod in kernel_ops.items()
+                for k, v in mod.LAUNCHES.items()}
     emit(phase="main_path", check="launches", launches=launches,
          plan_compile=store.cache_stats()["plan_compile"])
     return launches
+
+
+def kernel_style_degree(device, sots, ts):
+    """``style="kernel"`` degree on the card: the series at every point
+    and the degree at one point, bit for bit against the host replay on
+    the members present at t0 (the kernels give 0 elsewhere, as the
+    reference's do); then one plan run twice over one operand, the second
+    served from the device-operand cache."""
+    from repro_torch.taf import TemporalQuery, replay
+    from repro_torch.taf import exec as taf_exec
+
+    t0 = time.perf_counter()
+    series = taf_exec.sharded_degree_series(sots, ts, device=device)
+    t1 = time.perf_counter()
+    one = taf_exec.sharded_degree_at(sots, int(ts[64]), device=device)
+    t2 = time.perf_counter()
+    host = replay.degree_series(sots, ts)
+    t3 = time.perf_counter()
+    on = sots.init_present == 1
+    if series.shape != (len(sots), len(ts)) or series.dtype != np.int32:
+        fail(f"kernel-style degree series: {series.dtype}{series.shape}")
+    if not np.array_equal(series[on], host[on]):
+        fail("kernel-style degree series != host replay")
+    if not (np.array_equal(one, series[:, 64]) and np.array_equal(one[on], host[on, 64])):
+        fail("kernel-style degree at one point != series / host replay")
+    q = TemporalQuery.over(taf_exec.with_init_degree(sots), device=device) \
+        .node_compute(taf_exec.degree_at_kernel(int(ts[64])), style="kernel")
+    before = dict(taf_exec.STATS)
+    t4 = time.perf_counter()
+    first = q.execute()
+    t5 = time.perf_counter()
+    again = q.execute()
+    t6 = time.perf_counter()
+    stats = {k: taf_exec.STATS[k] - before[k] for k in before}
+    if stats != {"operand_transfers": 1, "operand_cache_hits": 1}:
+        fail(f"kernel-style operand cache: {stats}")
+    if not (np.array_equal(first, one) and np.array_equal(again, one)):
+        fail("kernel-style plan != sharded_degree_at")
+    emit(phase="main_path", check="kernel-style degree", members=len(sots),
+         T=len(ts), series_seconds=t1 - t0, one_point_seconds=t2 - t1,
+         host_replay_seconds=t3 - t2, plan_seconds=[t5 - t4, t6 - t5],
+         stats=dict(taf_exec.STATS), stats_delta=stats)
+
+
+def dense_analytics(device, sots, ts):
+    """The dense kernels on the dense stack of ``sots`` at ``ts`` (the
+    live edges the fused programs see): PageRank within 1e-5 of the fused
+    ``pagerank()`` plan, components bit for bit equal to ``components()``."""
+    from repro_torch.kernels.temporal_cc import ops as cc_ops
+    from repro_torch.kernels.temporal_pagerank import ops as pr_ops
+    from repro_torch.taf import TemporalQuery
+    from repro_torch.taf import compile as tc
+
+    t0 = time.perf_counter()
+    adj, active = tc.dense_stack(sots, ts, device=device)
+    sync(device)
+    t1 = time.perf_counter()
+    ranks = pr_ops.temporal_pagerank(adj, active)
+    labels = cc_ops.temporal_cc(adj, active)
+    sync(device)
+    t2 = time.perf_counter()
+
+    def fused(op):
+        return TemporalQuery.over(sots, device=device).node_compute(
+            op, style="temporal", points=ts).execute()[1]
+
+    pr_err = float(np.abs(ranks.cpu().numpy().T - fused(tc.pagerank())).max())
+    if not pr_err <= PAGERANK_ATOL:
+        fail(f"dense PageRank vs fused pagerank(): max err {pr_err}")
+    want = fused(tc.components()).astype(np.int32)
+    if not np.array_equal(labels.cpu().numpy().T, want):
+        fail("dense components != fused components()")
+    emit(phase="main_path", check="dense analytics T=16", members=len(sots),
+         T=len(ts), adjacency_bytes=adj.numel() * 4,
+         edges=int((adj != 0).sum()) // 2, dense_stack_seconds=t1 - t0,
+         kernels_seconds=t2 - t1, pagerank_vs_fused_max_abs_err=pr_err,
+         components_first_last=[int(np.unique(c[c >= 0]).size) for c in want.T[[0, -1]]])
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -305,15 +405,54 @@ def motif_work(adj) -> tuple:
     return 2 * nnz * N + 2 * nnz, adj.numel() * 4 + T * N * 4
 
 
+def pagerank_work(adj, active, iters: int = 20) -> tuple:
+    """Float operations and bytes PageRank needs: per iteration 2 per
+    nonzero (the product) and ~8 per node (contrib, dangling, update); the
+    adjacency and the mask read once, the (T, N) float32 ranks written
+    once."""
+    T, N, _ = adj.shape
+    nnz = int((adj != 0).sum())
+    return (iters * (2 * nnz + 8 * T * N),
+            adj.numel() * 4 + active.numel() * active.element_size() + T * N * 4)
+
+
+def cc_work(adj, active, iters: int = 32) -> tuple:
+    """Integer operations and bytes components need on these inputs: one
+    compare per entry to find the edges, then one min per edge and per
+    node in each round that changes a label at that timepoint (the kernel
+    stops a timepoint after its first round that changes nothing); the
+    adjacency and the mask read once, the (T, N) int32 labels written
+    once."""
+    T, N, _ = adj.shape
+    edge = adj > 0
+    act = active != 0
+    labels = torch.where(act, torch.arange(N, dtype=torch.int32, device=adj.device), N)
+    per_round = edge.sum(dim=(1, 2)) + N  # (T,) mins in one round
+    ops = adj.numel()
+    for _ in range(iters):
+        new = torch.minimum(labels, torch.where(edge, labels[:, :, None], N).amin(dim=1))
+        moved = (new != labels).any(dim=1)
+        if not bool(moved.any()):
+            break
+        ops += int(per_round[moved].sum())
+        labels = new
+    return ops, adj.numel() * 4 + active.numel() * active.element_size() + T * N * 4
+
+
 def kernel_case(name, args, tag):
     """Run one kernel on ``args`` against its plain version: bit-identical
-    or fail; returns the times, bound and error."""
+    (PageRank: within DENSE_PR_TOL, and the same bits on a second run) or
+    fail; returns the times, bound and error."""
     from repro_torch.kernels.delta_overlay import ops as ov_ops
     from repro_torch.kernels.delta_overlay import ref as ov_ref
+    from repro_torch.kernels.temporal_cc import ops as cc_ops
+    from repro_torch.kernels.temporal_cc import ref as cc_ref
     from repro_torch.kernels.temporal_motif import ops as motif_ops
     from repro_torch.kernels.temporal_motif import ref as motif_ref
+    from repro_torch.kernels.temporal_pagerank import ops as pr_ops
+    from repro_torch.kernels.temporal_pagerank import ref as pr_ref
 
-    library = None
+    library, peak, tol = None, TF32_OPS_PER_S, None
     if name == "delta_overlay.overlay":
         kern, plain = ov_ops.overlay, ov_ref.overlay_ref
         ops, nbytes = 0, overlay_bytes(args, batch=False)
@@ -324,7 +463,7 @@ def kernel_case(name, args, tag):
         ops, nbytes = 0, overlay_bytes(args, batch=True)
         shape = dict(h=args[0].shape[0], P=args[0].shape[1], S=args[0].shape[2],
                      K=args[2].shape[-1], T=args[3].shape[1])
-    else:
+    elif name == "temporal_motif.motif":
         kern, plain = motif_ops.temporal_motif, motif_ref.motif_ref
         T, N, _ = args[0].shape
         ops, nbytes = motif_work(args[0])
@@ -333,16 +472,39 @@ def kernel_case(name, args, tag):
         def library():
             a = args[0]
             return ((torch.bmm(a, a) * a).sum(dim=1) * 0.5).to(torch.int32)
+    elif name == "temporal_pagerank.pagerank":
+        kern, plain, tol = pr_ops.temporal_pagerank, pr_ref.pagerank_ref, DENSE_PR_TOL
+        T, N, _ = args[0].shape
+        (ops, nbytes), peak = pagerank_work(*args), FP32_OPS_PER_S
+        shape = dict(T=T, N=N, nnz=int((args[0] != 0).sum()), iters=20)
+
+        def library():  # the same loop of PyTorch calls, cuBLAS bmm for the product
+            return pr_ref.pagerank_ref(*args)
+    else:
+        kern, plain = cc_ops.temporal_cc, cc_ref.cc_ref
+        T, N, _ = args[0].shape
+        (ops, nbytes), peak = cc_work(*args), INT32_OPS_PER_S
+        shape = dict(T=T, N=N, nnz=int((args[0] != 0).sum()), iters=32)
 
     got = kern(*args)
     torch.cuda.synchronize()
     want = plain(*args)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    err = max_err(got, want)
-    if err != 0:
-        fail(f"{name} ({tag}) differs from its plain version: max err {err}")
-    ops_ms, bytes_ms = ops / TF32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    if tol is None:
+        err = max_err(got, want)
+        if err != 0:
+            fail(f"{name} ({tag}) differs from its plain version: max err {err}")
+    else:
+        (g,), (w,) = got, want
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{name} ({tag}): {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
+        err = float((g - w).abs().max())
+        if not torch.allclose(g, w, **tol):
+            fail(f"{name} ({tag}) outside {tol} of its plain version: max err {err}")
+        if not torch.equal(kern(*args), g):
+            fail(f"{name} ({tag}): two runs differ")
+    ops_ms, bytes_ms = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms > bytes_ms else "bytes"
     row = dict(shape=shape, max_abs_err=err, ms=device_ms(lambda: kern(*args)),
@@ -371,7 +533,20 @@ def headline_inputs(dev):
         a = torch.triu((torch.rand(T, N, N, generator=g) < p).float(), 1)
         return [(a + a.transpose(1, 2)).to(dev)]
 
-    return [
+    gd = torch.Generator(device=dev).manual_seed(13)
+
+    def analytics(T, N, p=0.02):
+        """Symmetric 0/1 adjacency made on the card (2.1 GB at T=8
+        N=8192) and a ~80% activity mask; edges may touch inactive nodes."""
+        a = torch.triu(torch.rand(T, N, N, generator=gd, device=dev) < p, 1)
+        a = a.to(torch.float32)
+        a += a.transpose(1, 2).clone()
+        return [a, (torch.rand(T, N, generator=gd, device=dev) < 0.8).to(torch.float32)]
+
+    dense = [(f"T={T} N={N}", analytics(T, N))
+             for T, N in ((4, 4096), (4, 4000), (8, 8192))]
+    return [(k, tag, a) for tag, a in dense
+            for k in ("temporal_pagerank.pagerank", "temporal_cc.cc")] + [
         ("delta_overlay.overlay", "h=8 P=16 S=65536 K=4", stacks(8, 16, 65536, 4)),
         ("delta_overlay.overlay", "h=8 P=16 S=65537 K=4", stacks(8, 16, 65537, 4)),
         ("delta_overlay.overlay_batch", "h=8 P=16 S=65536 K=4 T=32",
@@ -393,6 +568,12 @@ SOURCES = {
     "temporal_motif.motif": (
         "src/repro_torch/kernels/temporal_motif/temporal_motif.cu",
         "src/repro/kernels/temporal_motif/temporal_motif.py:32"),
+    "temporal_pagerank.pagerank": (
+        "src/repro_torch/kernels/temporal_pagerank/temporal_pagerank.cu",
+        "src/repro/kernels/temporal_pagerank/temporal_pagerank.py:47"),
+    "temporal_cc.cc": (
+        "src/repro_torch/kernels/temporal_cc/temporal_cc.cu",
+        "src/repro/kernels/temporal_cc/temporal_cc.py:46"),
 }
 
 
@@ -400,6 +581,7 @@ SOURCES = {
 
 
 def main() -> int:
+    start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--events", type=int, default=200_000)
@@ -415,6 +597,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # plain versions and yardsticks in full float32: TF32 would round the
+    # PageRank products to a 10-bit mantissa
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -464,6 +649,7 @@ def main() -> int:
                          bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                          library_ms=row["library_ms"], shape=row["shape"],
                          headline=headline))
+    emit(phase="done", seconds=time.perf_counter() - start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

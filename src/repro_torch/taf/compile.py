@@ -291,15 +291,35 @@ class TrianglesOp(FusedOp):
         return out
 
     def device(self, arrs, act, live):
-        u, v = arrs["edge_u"], arrs["edge_v"]
-        N, T = act.shape
-        live_t = live.T.contiguous()  # (T, E)
-        adj = torch.zeros((T, N * N), dtype=torch.float32, device=act.device)
-        for flat in (u * N + v, v * N + u):
-            adj.scatter_reduce_(1, flat[None, :].expand(T, -1), live_t, "amax")
         # the CUDA kernel on a card, its plain version on the CPU
-        tri = motif_ops.temporal_motif(adj.view(T, N, N))
+        tri = motif_ops.temporal_motif(dense_adjacency(arrs, live, act.shape[0]))
         return tri.T  # (N, T) int32
+
+
+def dense_adjacency(edge, live, N: int) -> torch.Tensor:
+    """(T, N, N) float32 symmetric 0/1 adjacency from the operand export's
+    canonical edges and their ``live (E, T)`` liveness: the dense stack
+    the triangle program and the dense analytics kernels read."""
+    u, v = edge["edge_u"], edge["edge_v"]
+    T = live.shape[1]
+    live_t = live.T.contiguous()  # (T, E)
+    adj = torch.zeros((T, N * N), dtype=torch.float32, device=live.device)
+    for flat in (u * N + v, v * N + u):
+        adj.scatter_reduce_(1, flat[None, :].expand(T, -1), live_t, "amax")
+    return adj.view(T, N, N)
+
+
+def dense_stack(sots: SoTS, ts, device=None):
+    """``(adj (T, N, N), active (T, N))`` float32 of ``sots`` at ``ts`` on
+    ``device`` (None: the CUDA card): the fused programs' presence and
+    live edges (both endpoints present), laid out for the dense kernels
+    ``temporal_pagerank`` / ``temporal_cc`` / ``temporal_motif``."""
+    device = dev.resolve(device)
+    tsv = _tsv(np.asarray(ts, np.int64).ravel(), device)
+    edge = _edge_arrays(sots, device)
+    act = _dev_presence(_node_arrays(sots, device), tsv).to(torch.float32)
+    live = _dev_edge_live(edge, act, tsv)
+    return dense_adjacency(edge, live, len(sots)), act.T.contiguous()
 
 
 class FusedScalarOp:

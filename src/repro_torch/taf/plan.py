@@ -16,8 +16,8 @@ linear chain of typed stages — and one ``PlanExecutor`` runs it:
                     Compute when it only pins the evaluation points.
 * ``Compute``     — NodeCompute/NodeComputeTemporal/NodeComputeDelta
                     (operators 4-6) on the vectorized numpy path, or a
-                    device kernel under shard_map (style="kernel", not
-                    ported yet).
+                    torch kernel over the padded operand on the
+                    executor's device (style="kernel", ``taf/exec.py``).
 * ``Evolution``   — aggregate quantity over time (operator 8).
 * ``Aggregate``   — temporal aggregation (operator 9).
 
@@ -51,6 +51,7 @@ import numpy as np
 
 from repro_torch import device as dev
 from repro_torch.core.tgi import FetchCost
+from repro_torch.taf import exec as taf_exec
 from repro_torch.taf import operators as ops
 from repro_torch.taf import replay
 from repro_torch.taf.son import SoN, build_son, build_sots
@@ -128,7 +129,8 @@ class Compute:
 
     style: "static" (one timepoint) | "temporal" (O(N·T) re-eval) |
     "delta" (O(N+T) incremental; needs f_delta) | "kernel" (vectorized
-    jnp kernel run under shard_map on the device mesh).
+    torch kernel run on the executor's device; ``mesh`` must be None
+    until sharding over several cards lands).
     """
 
     fn: Callable
@@ -141,7 +143,7 @@ class Compute:
     kind = "compute"
 
     def describe(self) -> str:
-        backend = "shard_map" if self.style == "kernel" else "numpy"
+        backend = "torch" if self.style == "kernel" else "numpy"
         name = self.label or getattr(self.fn, "__name__", "f")
         return f"Compute[{name}, style={self.style}, backend={backend}]"
 
@@ -414,9 +416,8 @@ class PlanExecutor:
             return ops.node_compute_delta(son, stage.fn, stage.f_delta,
                                           points=stage.points)
         if stage.style == "kernel":
-            raise NotImplementedError(
-                'style="kernel" runs under shard_map in taf/exec.py, which '
-                "is a later slice of the port, see ROADMAP")
+            return taf_exec.sharded_node_compute(son, stage.fn, mesh=stage.mesh,
+                                                 device=self.device)
         raise ValueError(f"unknown compute style {stage.style!r}")
 
     @staticmethod

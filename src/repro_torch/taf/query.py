@@ -343,8 +343,9 @@ class TemporalQuery:
                      f_delta: Optional[Callable] = None, points=None,
                      t: Optional[int] = None, mesh=None,
                      label: Optional[str] = None) -> "TemporalQuery":
-        """Operators 4-6 (style = static | temporal | delta) or a device
-        kernel under shard_map (style = kernel)."""
+        """Operators 4-6 (style = static | temporal | delta) or a torch
+        kernel over the padded operand on the query's device (style =
+        kernel, ``taf/exec.py``)."""
         return self._append(Compute(fn=fn, style=style, f_delta=f_delta,
                                     points=points, t=t, mesh=mesh, label=label))
 

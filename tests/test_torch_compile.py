@@ -129,11 +129,20 @@ def test_repeated_plan_shape_builds_no_new_program():
 
 
 def test_kernel_style_is_a_later_slice():
-    _, sots, _ = _pair(11, N=6)
-    q = TemporalQuery.over(sots, device="cpu").node_compute(
-        lambda *a, **k: 0.0, style="kernel")
-    with pytest.raises(NotImplementedError, match="taf/exec.py"):
-        q.run()
+    """style="kernel" (ported after the first slice, in taf/exec.py) runs
+    staged, outside the plan compiler, and matches the reference."""
+    from repro.taf import exec as ref_exec
+    from repro_torch.taf import exec as taf_exec
+
+    ref_sots, sots, ts = _pair(11, N=6)
+    patched = taf_exec.with_init_degree(sots)
+    ref_patched = dataclasses.replace(ref_sots, init_attrs=patched.init_attrs.copy())
+    got = TemporalQuery.over(patched, device="cpu").node_compute(
+        taf_exec.degree_series_kernel(ts), style="kernel").run()
+    want = RefQuery.over(ref_patched).node_compute(
+        ref_exec.degree_series_kernel(ts), style="kernel").run()
+    assert any("staged compute" in n for n in got.notes), got.notes
+    _exact(got.value, np.asarray(want.value))
 
 
 def _entry_points():
