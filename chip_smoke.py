@@ -18,12 +18,20 @@ one JSON line; any failure exits non-zero:
    replay; a repeated run served from the device-operand cache), and the
    dense analytics kernels ``temporal_pagerank`` / ``temporal_cc`` on
    the triangles step's dense stack against the fused ``pagerank`` /
-   ``components`` plans.  Kernel launch counts are zeroed just before
-   and read just after; a kernel of the path that never launched fails
-   the run;
+   ``components`` plans.  Then the LM serving path: ``serve(
+   "recurrentgemma-9b", batch=4, prompt_len=4096, gen_tokens=16)`` at
+   full width and depth in bf16 with seeded weights (prefill seconds,
+   decode tokens/s, parameter bytes, peak memory), a batch-1 check that
+   prefill(S-1) + decode_step gives prefill(S)'s last logits, and the
+   reduced config on the card against the CPU's plain versions.  Kernel
+   launch counts are zeroed just before each path and read just after; a
+   kernel of a path that never launched fails the run, and the serve
+   prefill must launch ``flash_attention`` 12 and ``rglru_scan`` 52 times;
 4. kernels  — each kernel against its plain PyTorch version (bit for
-   bit; PageRank within atol=1e-6, rtol=1e-5), on the inputs each step
-   of the main path gave it and at headline shapes; device times from
+   bit; PageRank within atol=1e-6, rtol=1e-5; attention within 2e-5 in
+   float32 and 2e-2 in bf16, RG-LRU within 2e-5, the reference's kernel
+   test tolerances), on the inputs each step of the main paths gave it,
+   at headline shapes and on the reference's kernel-test grid; device times from
    CUDA events, beside the plain version's, one library call's where
    there is one, and the bound: the larger of the bytes the function
    must move over the memory rate and the operations these inputs need
@@ -32,13 +40,15 @@ one JSON line; any failure exits non-zero:
 Phase 1 also prints ``nvidia-smi``'s own line.  The line before the
 last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  ``--device cpu --events N`` rehearses
-phase 3 on the CPU with the plain versions and prints no result.
+phase 3 on the CPU with the plain versions (the LM path at its reduced
+config) and prints no result.
 """
 from __future__ import annotations
 
 import argparse
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -57,6 +67,12 @@ FP32_OPS_PER_S = 67e12  # H100 SXM FP32 CUDA-core peak, no tensor cores (data sh
 INT32_OPS_PER_S = 33.5e12  # H100 SXM5 INT32 peak (Hopper architecture white paper)
 PAGERANK_ATOL = 1e-5  # f32 device vs f64 host (taf/compile.py PageRankOp)
 DENSE_PR_TOL = dict(atol=1e-6, rtol=1e-5)  # f32 sums in another order
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+# the reference's kernel-test tolerances (tests/test_kernels.py): f32 sums
+# in another order; bf16 outputs rounded from nearby f32 values
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+RGLRU_TOL = dict(atol=2e-5, rtol=2e-5)
 
 
 def emit(**obj):
@@ -127,9 +143,10 @@ class Recorder:
     def wrap(self, mod, fn: str, name: str):
         orig = getattr(mod, fn)
 
-        def shim(*args):
-            self.inputs.setdefault((name, self.tag), [a.clone() for a in args])
-            return orig(*args)
+        def shim(*args, **kw):
+            if (name, self.tag) not in self.inputs:
+                self.inputs[(name, self.tag)] = ([_keep(a) for a in args], dict(kw))
+            return orig(*args, **kw)
 
         setattr(mod, fn, shim)
         self._undo.append((mod, fn, orig))
@@ -137,6 +154,19 @@ class Recorder:
     def restore(self):
         for mod, fn, orig in self._undo:
             setattr(mod, fn, orig)
+        self._undo.clear()
+
+
+def _keep(a):
+    """A copy of ``a`` with its layout: strides kept, and a stride-0 axis
+    (an expanded KV head) kept at stride 0 over one copied slice."""
+    if not torch.is_tensor(a):
+        return a
+    base = a
+    for d, (n, s) in enumerate(zip(a.shape, a.stride())):
+        if s == 0 and n > 1:
+            base = base.narrow(d, 0, 1)
+    return base.clone().expand(a.shape)
 
 
 def main_path(device, n_events: int, recorder=None):
@@ -325,6 +355,120 @@ def sync(device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the LM serving path
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "recurrentgemma-9b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 16
+LM_LAUNCHES = {"flash_attention": 12, "rglru_scan": 52}  # per prefill at full depth
+# prefill(S-1) + decode_step against prefill(S), both in bf16.  bf16
+# serving of this 38-layer stack with random weights departs from its
+# own f32 answer by 2.6-3.5% (relative L2 of the last logits), and the
+# two paths round at other places in every layer, so each may sit that
+# far from it; faults of the cache handoff (ring roll dropped, conv tail
+# lost, window ignored) move the logits by 10-45%
+# (tools/lm_bf16_consistency.py, on the CPU at widths 64 and 256).  The
+# bound lies between: relative L2 under 2^-4.
+LM_CONSISTENCY_REL = 2.0 ** -4
+LM_REDUCED_TOL = dict(atol=1e-4, rtol=1e-4)  # f32, card kernels vs CPU plain
+
+
+def lm_serve(device, recorder=None, reduced=False):
+    """``serve(LM_ARCH, 4, 4096, 16)`` on ``device`` with seeded weights,
+    kernel launches counted around it; then the batch-1 self-consistency
+    check of prefill + decode_step against a longer prefill."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm
+
+    cfg = serve_mod.serving_config(LM_ARCH, reduced=reduced)
+    prompt = LM_PROMPT if not reduced else 48
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, seed=0, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    kernel_ops = {"flash_attention": fa_ops, "rglru_scan": rg_ops}
+    if recorder is not None:
+        recorder.tag = "main path"
+        recorder.wrap(fa_ops, "flash_attention", "flash_attention")
+        recorder.wrap(rg_ops, "rglru", "rglru_scan")
+    for mod in kernel_ops.values():
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    gen, stats = serve_mod.serve(LM_ARCH, LM_BATCH, prompt, LM_GEN, reduced=reduced,
+                                 seed=0, device=device, params=model)
+    launches = {name: sum(mod.LAUNCHES.values()) for name, mod in kernel_ops.items()}
+    if recorder is not None:
+        recorder.restore()
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    if gen.shape != (LM_BATCH, LM_GEN) or not ((gen >= 0) & (gen < cfg.vocab_size)).all():
+        fail(f"lm serve: tokens {gen.shape} outside [0, {cfg.vocab_size})")
+    if not stats["logits_finite"]:
+        fail("lm serve: non-finite decode logits")
+    emit(phase="main_path", check="lm serve", arch=LM_ARCH, reduced=reduced,
+         layers=cfg.n_layers, d_model=cfg.d_model, batch=LM_BATCH, prompt_len=prompt,
+         gen_tokens=LM_GEN, dtype=cfg.dtype, init_seconds=init_s,
+         prefill_seconds=stats["prefill_s"], decode_seconds=stats["decode_s"],
+         decode_tok_per_s=stats["tok_per_s"],
+         param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+         peak_memory_bytes=peak, launches=launches, first_tokens=gen[0, :4].tolist())
+    lm_consistency(model, prompt)
+    return launches
+
+
+def lm_consistency(model, S: int):
+    """Batch 1: prefill(S-1) then decode_step at position S-1 gives the
+    last-token logits of prefill(S).  S > window, so the ring cache (rolled
+    at prefill, overwritten by the decode) and the RG-LRU state handoff run
+    through both paths."""
+    dev = model.embed.device
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, model.cfg.vocab_size, size=(1, S)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        full, _ = model.prefill(tokens, cache_len=S + 8)
+        _, caches = model.prefill(tokens[:, :-1], cache_len=S + 8)
+        step, _ = model.decode_step(caches, tokens[:, -1:],
+                                    torch.tensor([S - 1], dtype=torch.int32, device=dev))
+    want, got = full[0, -1], step[0, -1]
+    if not (torch.isfinite(want).all() and torch.isfinite(got).all()):
+        fail("lm consistency: non-finite logits")
+    rel = float((got - want).norm() / want.norm())
+    emit(phase="main_path", check="lm prefill+decode vs prefill", S=S,
+         rel_l2=rel, bound=LM_CONSISTENCY_REL,
+         max_abs_diff=float((got - want).abs().max()), max_abs=float(want.abs().max()),
+         same_argmax=bool(got.argmax() == want.argmax()))
+    if not rel <= LM_CONSISTENCY_REL:
+        fail(f"lm consistency: relative L2 {rel} > {LM_CONSISTENCY_REL}")
+
+
+def lm_reduced_card_vs_cpu(device):
+    """The reduced config (float32, head dim 16) on the card through both
+    kernels against the same weights on the CPU through the plain
+    versions: forward logits and prefill logits within 1e-4."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm
+
+    cfg = serve_mod.serving_config(LM_ARCH, reduced=True)
+    card = lm.init(cfg, seed=3, device=device)
+    host = lm.from_state_dict(cfg, {k: v.cpu() for k, v in card.state_dict().items()},
+                              device="cpu")
+    tokens = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, size=(2, 80)).astype(np.int32))
+    err = 0.0
+    with torch.inference_mode():
+        for fn in (lambda m, t: m(t), lambda m, t: m.prefill(t, cache_len=96)[0]):
+            got, want = fn(card, tokens.to(device)).cpu(), fn(host, tokens)
+            if not torch.allclose(got, want, **LM_REDUCED_TOL):
+                fail(f"lm reduced: card vs CPU max err {float((got - want).abs().max())}")
+            err = max(err, float((got - want).abs().max()))
+    emit(phase="main_path", check="lm reduced card vs cpu", layers=cfg.n_layers,
+         max_abs_err=err, tol=LM_REDUCED_TOL)
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -439,12 +583,34 @@ def cc_work(adj, active, iters: int = 32) -> tuple:
     return ops, adj.numel() * 4 + active.numel() * active.element_size() + T * N * 4
 
 
-def kernel_case(name, args, tag):
+def attention_work(q, k, v, q_pos, k_pos, causal=True, window=0) -> tuple:
+    """Operations and bytes attention needs on these inputs: 4 D per
+    (query, key) pair the masks let through, for every (b, h); q, out and
+    the distinct elements of k and v (a stride-0 head axis holds one head)
+    moved once, the positions read once."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, H, _, D = q.shape
+    pairs = int(fa_ref.position_mask(q_pos, k_pos, causal=causal, window=window).sum())
+
+    def distinct(t):
+        return math.prod(n for n, s in zip(t.shape, t.stride()) if s != 0 or n == 1)
+
+    nbytes = (2 * q.numel() + distinct(k) + distinct(v)) * q.element_size() \
+        + 4 * (q_pos.numel() + k_pos.numel())
+    return 4 * D * pairs * B * H, nbytes, pairs * B * H
+
+
+def kernel_case(name, args, kw, tag):
     """Run one kernel on ``args`` against its plain version: bit-identical
-    (PageRank: within DENSE_PR_TOL, and the same bits on a second run) or
-    fail; returns the times, bound and error."""
+    (PageRank, attention, RG-LRU: within their tolerance, and the same bits
+    on a second run) or fail; returns the times, bound and error."""
     from repro_torch.kernels.delta_overlay import ops as ov_ops
     from repro_torch.kernels.delta_overlay import ref as ov_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
     from repro_torch.kernels.temporal_cc import ops as cc_ops
     from repro_torch.kernels.temporal_cc import ref as cc_ref
     from repro_torch.kernels.temporal_motif import ops as motif_ops
@@ -480,15 +646,38 @@ def kernel_case(name, args, tag):
 
         def library():  # the same loop of PyTorch calls, cuBLAS bmm for the product
             return pr_ref.pagerank_ref(*args)
-    else:
+    elif name == "temporal_cc.cc":
         kern, plain = cc_ops.temporal_cc, cc_ref.cc_ref
         T, N, _ = args[0].shape
         (ops, nbytes), peak = cc_work(*args), INT32_OPS_PER_S
         shape = dict(T=T, N=N, nnz=int((args[0] != 0).sum()), iters=32)
+    elif name == "flash_attention":
+        q = args[0]
+        kern = fa_ops.flash_attention
+        tol = ATTN_TOL[q.dtype]
 
-    got = kern(*args)
+        def plain(*a, **k):
+            return fa_ref.attention_ref(*a, **k).to(a[0].dtype)
+
+        ops, nbytes, pairs = attention_work(*args, **kw)
+        peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+        B, H, Sq, D = q.shape
+        shape = dict(B=B, H=H, Sq=Sq, Sk=args[1].shape[2], D=D, dtype=str(q.dtype),
+                     kv_head_stride=args[1].stride(1), pairs=pairs, **kw)
+        mask = fa_ref.position_mask(args[3], args[4], **kw)
+
+        def library():  # one fused PyTorch call, timed only
+            return torch.nn.functional.scaled_dot_product_attention(
+                *args[:3], attn_mask=mask)
+    else:
+        kern, plain, tol = rg_ops.rglru, rg_ref.rglru_ref, RGLRU_TOL
+        B, S, W = args[0].shape
+        ops, nbytes, peak = 3 * args[0].numel(), 3 * args[0].numel() * 4, FP32_OPS_PER_S
+        shape = dict(B=B, S=S, W=W)
+
+    got = kern(*args, **kw)
     torch.cuda.synchronize()
-    want = plain(*args)
+    want = plain(*args, **kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     if tol is None:
@@ -499,16 +688,16 @@ def kernel_case(name, args, tag):
         (g,), (w,) = got, want
         if g.dtype != w.dtype or g.shape != w.shape:
             fail(f"{name} ({tag}): {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
-        err = float((g - w).abs().max())
+        err = float((g.float() - w.float()).abs().max())
         if not torch.allclose(g, w, **tol):
             fail(f"{name} ({tag}) outside {tol} of its plain version: max err {err}")
-        if not torch.equal(kern(*args), g):
+        if not torch.equal(kern(*args, **kw), g):
             fail(f"{name} ({tag}): two runs differ")
     ops_ms, bytes_ms = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms > bytes_ms else "bytes"
-    row = dict(shape=shape, max_abs_err=err, ms=device_ms(lambda: kern(*args)),
-               plain_ms=device_ms(lambda: plain(*args)), bound_ms=bound_ms,
+    row = dict(shape=shape, max_abs_err=err, ms=device_ms(lambda: kern(*args, **kw)),
+               plain_ms=device_ms(lambda: plain(*args, **kw)), bound_ms=bound_ms,
                bound_by=bound_by,
                library_ms=None if library is None else device_ms(library))
     emit(phase="kernel_vs_plain", kernel=name, inputs=tag, **row)
@@ -543,10 +732,38 @@ def headline_inputs(dev):
         a += a.transpose(1, 2).clone()
         return [a, (torch.rand(T, N, generator=gd, device=dev) < 0.8).to(torch.float32)]
 
+    def attention(B, H, Sq, Sk, D, causal, window, dtype, holes=0):
+        """The reference's kernel-test case on the card; ``holes`` > 0
+        leaves only the first ``holes`` keys valid (a ring cache)."""
+        q, k, v = ((torch.randn(B, H, n, D, generator=gd, device=dev) * 0.5).to(dtype)
+                   for n in (Sq, Sk, Sk))
+        k_pos = torch.arange(Sk, dtype=torch.int32, device=dev)
+        q_pos = k_pos[Sk - Sq:] if causal else k_pos[:Sq]
+        if holes:
+            k_pos = torch.where(k_pos < holes, k_pos, -1)
+            q_pos = torch.full((Sq,), holes - 1, dtype=torch.int32, device=dev)
+        tag = f"B={B} H={H} Sq={Sq} Sk={Sk} D={D} {str(dtype)[6:]} causal={causal} " \
+              f"window={window}" + (f" holes after {holes}" if holes else "")
+        return ("flash_attention", tag, [q, k, v, q_pos, k_pos],
+                dict(causal=causal, window=window))
+
+    def rglru(B, S, W):
+        la = -torch.rand(B, S, W, generator=gd, device=dev).abs() * 0.5
+        return ("rglru_scan", f"B={B} S={S} W={W}",
+                [la, torch.randn(B, S, W, generator=gd, device=dev)], {})
+
+    f32, bf16 = torch.float32, torch.bfloat16
     dense = [(f"T={T} N={N}", analytics(T, N))
              for T, N in ((4, 4096), (4, 4000), (8, 8192))]
-    return [(k, tag, a) for tag, a in dense
-            for k in ("temporal_pagerank.pagerank", "temporal_cc.cc")] + [
+    lm = [attention(1, 2, 64, 64, 32, True, 0, f32), attention(2, 1, 128, 128, 16, True, 0, bf16),
+          attention(1, 2, 96, 160, 32, True, 48, f32), attention(1, 1, 64, 256, 64, False, 0, f32),
+          attention(2, 2, 1, 96, 32, True, 0, f32), attention(1, 1, 1, 64, 16, True, 0, f32, 40),
+          attention(1, 2, 300, 300, 256, True, 128, bf16),
+          rglru(1, 128, 128), rglru(2, 64, 256), rglru(1, 96, 130), rglru(2, 33, 64),
+          rglru(1, 40, 32)]
+    dense = [(k, tag, a) for tag, a in dense
+             for k in ("temporal_pagerank.pagerank", "temporal_cc.cc")]
+    return lm + [(k, tag, a, {}) for k, tag, a in dense + [
         ("delta_overlay.overlay", "h=8 P=16 S=65536 K=4", stacks(8, 16, 65536, 4)),
         ("delta_overlay.overlay", "h=8 P=16 S=65537 K=4", stacks(8, 16, 65537, 4)),
         ("delta_overlay.overlay_batch", "h=8 P=16 S=65536 K=4 T=32",
@@ -555,7 +772,7 @@ def headline_inputs(dev):
          stacks(8, 16, 65537, 4) + [tmask(8, 32)]),
         ("temporal_motif.motif", "T=4 N=4096", adjacency(4, 4096)),
         ("temporal_motif.motif", "T=4 N=4000", adjacency(4, 4000)),
-    ]
+    ]]
 
 
 SOURCES = {
@@ -574,6 +791,12 @@ SOURCES = {
     "temporal_cc.cc": (
         "src/repro_torch/kernels/temporal_cc/temporal_cc.cu",
         "src/repro/kernels/temporal_cc/temporal_cc.py:46"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:67"),
+    "rglru_scan": (
+        "src/repro_torch/kernels/rglru_scan/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan/rglru_scan.py:45"),
 }
 
 
@@ -590,8 +813,9 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    if args.device == "cpu":  # rehearsal of the main path, no result
+    if args.device == "cpu":  # rehearsal of the main paths, no result
         main_path(torch.device("cpu"), args.events)
+        lm_serve(torch.device("cpu"), reduced=True)
         print("chip_smoke: CPU rehearsal only, no result", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -625,6 +849,12 @@ def main() -> int:
     dev = torch.device("cuda")
     recorder = Recorder()
     launches = main_path(dev, args.events, recorder)
+    lm_launches = lm_serve(dev, recorder)
+    if lm_launches != LM_LAUNCHES:
+        fail(f"lm serve launched {lm_launches}, not {LM_LAUNCHES}")
+    launches.update(lm_launches)
+    lm_reduced_card_vs_cpu(dev)
+    torch.cuda.empty_cache()  # the 17 GB model is gone
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"kernels of the main path never launched: {missing}")
@@ -636,11 +866,11 @@ def main() -> int:
         inputs = recorder.inputs.get((kname, "main path"))
         if inputs is None:
             fail(f"no main-path inputs recorded for {kname}")
-        row = kernel_case(kname, inputs, "main path")
-        others = [(tag, a) for (n, tag), a in recorder.inputs.items()
+        row = kernel_case(kname, *inputs, "main path")
+        others = [(tag, a, kw) for (n, tag), (a, kw) in recorder.inputs.items()
                   if n == kname and tag != "main path"]
-        others += [(tag, a) for n, tag, a in headlines if n == kname]
-        headline = {tag: kernel_case(kname, a, tag) for tag, a in others}
+        others += [(tag, a, kw) for n, tag, a, kw in headlines if n == kname]
+        headline = {tag: kernel_case(kname, a, kw, tag) for tag, a, kw in others}
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=launches[kname],
                          max_abs_err=max([row["max_abs_err"]] + [

@@ -6,13 +6,18 @@ These constructors rebuild the port's objects from those arrays, so one
 seeded input can be fed to both packages without either importing the
 other: pass ``{name: getattr(obj, name)}`` over the reference object's
 fields.
+
+The LM's parameters and caches travel as nested dicts of numpy arrays in
+the reference's tree layout (``{"embed", "final_norm", "rem": {"b<i>"},
+"units": {"b<i>": leaves stacked over units}}``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
+import torch
 
 from repro_torch.core.events import COLUMNS, DTYPES, EventLog
 from repro_torch.taf.son import SoN, SoTS
@@ -40,3 +45,50 @@ def son_from_arrays(fields: Dict) -> SoN:
 def sots_from_arrays(fields: Dict) -> SoTS:
     """SoTS from the fields of a SoTS (arrays copied)."""
     return SoTS(**_fields(SoTS, fields))
+
+
+def _flat(tree, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_params_from_arrays(cfg, tree: Dict) -> Dict[str, torch.Tensor]:
+    """The port's LM state dict from the reference's parameter tree (as
+    numpy, e.g. ``split_tree(lm.init(...))[0]``): ``rem/b<i>/...`` is
+    layer i, ``units/b<i>/...[u]`` layer ``n_rem + u * unit_len + i``."""
+    state = {}
+    for name, value in _flat({k: v for k, v in tree.items() if k not in ("rem", "units")}):
+        state[name] = torch.from_numpy(np.array(value))
+    for name, value in _flat(tree.get("rem") or {}):
+        b, rest = name.split(".", 1)
+        state[f"layers.{int(b[1:])}.{rest}"] = torch.from_numpy(np.array(value))
+    for name, value in _flat(tree.get("units") or {}):
+        b, rest = name.split(".", 1)
+        for u in range(cfg.n_units):
+            layer = cfg.n_rem_layers + u * cfg.unit_len + int(b[1:])
+            state[f"layers.{layer}.{rest}"] = torch.from_numpy(np.array(value[u]))
+    return state
+
+
+def lm_cache_to_arrays(cfg, caches: List[Dict]) -> Dict:
+    """The reference's ``{"rem", "units"}`` cache tree (numpy) from the
+    port's per-layer caches, unit leaves stacked over units."""
+
+    def host(c):
+        return {k: host(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in c.items()}
+
+    rem = {f"b{i}": host(caches[i]) for i in range(cfg.n_rem_layers)}
+    units = None
+    if cfg.n_units:
+        per_unit = [[host(caches[cfg.n_rem_layers + u * cfg.unit_len + i])
+                     for u in range(cfg.n_units)] for i in range(cfg.unit_len)]
+
+        def stack(trees):
+            return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+                    else np.stack([t[k] for t in trees]) for k in trees[0]}
+
+        units = {f"b{i}": stack(per_unit[i]) for i in range(cfg.unit_len)}
+    return {"rem": rem, "units": units}

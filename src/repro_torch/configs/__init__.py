@@ -1,0 +1,9 @@
+from repro_torch.configs.base import (
+    ARCH_IDS,
+    SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    get_config,
+)
+
+__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeConfig", "get_config"]

@@ -1,0 +1,70 @@
+"""Wrapper of the flash-attention kernel.
+
+Dispatch is on the tensor's device: on a CUDA device the hand-written
+kernel (``flash_attention.cu``) runs and any build or launch error
+raises; on the CPU the plain version (``ref.py``) runs.  ``LAUNCHES``
+counts the kernel launches, one per wrapper call that reaches the card.
+
+The kernel takes q, k and v as they are: any strides on the batch, head
+and sequence axes (so a (B, S, H, D) projection viewed as (B, H, S, D),
+and one KV head expanded to H heads with stride 0, need no copy), unit
+stride on D.  The output has q's type and q's layout.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ref
+
+LAUNCHES = {"flash_attention": 0}
+
+_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+_SIGNATURES = {"flash_attention_launch": [_P] * 6 + [_I] * 5 + [_L] * 12
+               + [_I, _I, _D, _I, _P]}
+
+
+def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int = 0):
+    """q: (B, H, Sq, D); k, v: (B, H, Sk, D) (KV already expanded to H
+    heads); q_pos (Sq,), k_pos (Sk,) int positions, ``k_pos = -1`` a hole.
+    float32 or bfloat16 in, float32 accumulation, out (B, H, Sq, D) in
+    q's type; a query with no key to attend gives 0."""
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, q_pos, k_pos, causal=causal,
+                                 window=window).to(q.dtype)
+    if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, q_pos, k_pos)):
+        raise ValueError("flash_attention runs on cuda or cpu, with every input "
+                         f"on one device; q is on {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention wants q (B, H, Sq, D) and k, v (B, H, Sk, D), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if D % 16 or not 16 <= D <= 256 or Sq == 0 or Sk == 0:
+        raise ValueError(f"flash_attention wants D a multiple of 16 up to 256 and "
+                         f"non-empty sequences, got D={D} Sq={Sq} Sk={Sk}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention wants float32 or bfloat16 q, k, v of one type, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if tuple(q_pos.shape) != (Sq,) or tuple(k_pos.shape) != (Sk,):
+        raise ValueError(f"flash_attention wants q_pos ({Sq},) and k_pos ({Sk},), got "
+                         f"{tuple(q_pos.shape)}, {tuple(k_pos.shape)}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q_pos = q_pos.to(torch.int32).contiguous()
+    k_pos = k_pos.to(torch.int32).contiguous()
+    out = torch.empty_like(q)  # q's layout when q is dense, else contiguous
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    lib = _build.load("flash_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q_pos.data_ptr(), k_pos.data_ptr(), B, H, Sq, Sk, D, *strides,
+            int(causal), int(window), float(D) ** -0.5,
+            int(q.dtype == torch.bfloat16), _build.stream_of(q))
+    _build.check(lib, err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,0 +1,275 @@
+"""Attention: GQA / MQA / MHA with full / sliding-window / local masking
+(port of ``repro.models.attention``).
+
+The full-sequence path (prefill, forward) runs the ``flash_attention``
+kernel (``repro_torch.kernels.flash_attention``, the kernel the
+reference wrote for the TPU but never calls from its model; its own test
+holds it equal to ``blockwise_attention`` and ``direct_attention``).
+The projections stay in (B, S, H, hd); the kernel reads them through a
+(B, H, S, hd) view, and MQA's one KV head through a stride-0 head axis,
+so neither needs a copy.  ``blockwise_attention`` and
+``direct_attention`` are kept as plain functions of tensors.  Decode
+keeps a per-sequence ``k_pos`` (B, Sc), which is not the kernel's shared
+positions, and runs in plain torch, as the reference computes it outside
+any Pallas kernel.  The decode cache is updated in place.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import position_mask
+from repro_torch.models.common import (
+    Init,
+    apply_rope,
+    n_kv_virtual,
+    rms_norm,
+    rope_tables,
+    softcap,
+)
+
+NEG = -0.7 * torch.finfo(torch.float32).max
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    def __init__(self, ini: Init, cfg):
+        super().__init__()
+        D, hd = cfg.d_model, cfg.resolved_head_dim
+        H, KV = cfg.n_heads_p, cfg.n_kv_p  # padded (== raw when padding is off)
+        self.wq = ini.fan_in((D, H, hd), fan_axes=(0,))
+        self.wk = ini.fan_in((D, KV, hd), fan_axes=(0,))
+        self.wv = ini.fan_in((D, KV, hd), fan_axes=(0,))
+        self.wo = ini.fan_in((H, hd, D), fan_axes=(0, 1))
+        if H != cfg.n_heads and ini.generator is not None:
+            # zero the padded heads' output rows: function-preserving padding
+            self.wo.data[cfg.n_heads:] = 0
+        self.bq = self.bk = self.bv = self.bo = None
+        if cfg.qkv_bias:
+            self.bq = ini.zeros((H, hd))
+            self.bk = ini.zeros((KV, hd))
+            self.bv = ini.zeros((KV, hd))
+            self.bo = ini.zeros((D,))
+        self.q_norm = self.k_norm = None
+        if cfg.qk_norm:
+            self.q_norm = ini.zeros((hd,))
+            self.k_norm = ini.zeros((hd,))
+
+
+def _proj(x, w, bias=None):
+    """x: (B, S, D) @ w: (D, H, hd) -> (B, S, H, hd)."""
+    y = torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype))
+    return y if bias is None else y + bias.to(x.dtype)
+
+
+def _out_proj(p: Attention, out):
+    """out: (B, S, H, hd) -> (B, S, D)."""
+    y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(out.dtype))
+    return y if p.bo is None else y + p.bo.to(out.dtype)
+
+
+def _project_kv(p: Attention, x, cfg, positions):
+    """k, v (B, S, KV, hd) with k-norm and rope applied."""
+    k, v = _proj(x, p.wk, p.bk), _proj(x, p.wv, p.bv)
+    if p.k_norm is not None:
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    if cfg.pos_kind == "rope":
+        k = apply_rope(k, *rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta))
+    return k, v
+
+
+def _project_qkv(p: Attention, x, cfg, positions):
+    """Returns q (B, S, H, hd), k/v (B, S, KV, hd): rope and norm applied."""
+    q = _proj(x, p.wq, p.bq)
+    if p.q_norm is not None:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+    if cfg.pos_kind == "rope":
+        q = apply_rope(q, *rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta))
+    k, v = _project_kv(p, x, cfg, positions)
+    return q, k, v
+
+
+def _expand_kv(k, v, n_heads: int):
+    """Repeat KV heads to n_heads, consecutive grouping (q head h reads kv
+    head h // (H // KV), ``jnp.repeat``, i.e. ``repeat_interleave``).  One
+    KV head is expanded as a stride-0 view, without a copy."""
+    kvh = k.shape[2]
+    if kvh == n_heads:
+        return k, v
+    if kvh == 1:
+        shape = (k.shape[0], k.shape[1], n_heads, k.shape[3])
+        return k.expand(shape), v.expand(shape)
+    rep = n_heads // kvh
+    return k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+
+
+def _window(cfg) -> int:
+    return cfg.window if cfg.attn_kind in ("swa", "local") else 0
+
+
+# ---------------------------------------------------------------------------
+# Plain full-sequence attention (the reference's jnp paths)
+# ---------------------------------------------------------------------------
+
+
+def blockwise_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int = 0,
+                        logit_cap: float = 0.0, blk_q: int = 512, blk_k: int = 1024):
+    """Online-softmax attention over (q block, kv block) pairs.
+    q: (B, Sq, H, hd); k, v: (B, Sk, H, hd) (KV expanded to H heads);
+    q_pos (Sq,), k_pos (Sk,) with -1 a hole.  Returns (B, Sq, H, hd) in
+    q's type.  Every pair of blocks is visited and masked."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    scale = hd ** -0.5
+    blk_q, blk_k = min(blk_q, max(Sq, 1)), min(blk_k, max(Sk, 1))
+    outs = []
+    for i0 in range(0, Sq, blk_q):
+        q_i, qpos_i = q[:, i0:i0 + blk_q], q_pos[i0:i0 + blk_q]
+        n = q_i.shape[1]
+        m = torch.full((B, H, n), NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, n), dtype=torch.float32, device=q.device)
+        o = torch.zeros((B, H, n, hd), dtype=torch.float32, device=q.device)
+        for j0 in range(0, Sk, blk_k):
+            k_j, v_j, kpos_j = k[:, j0:j0 + blk_k], v[:, j0:j0 + blk_k], k_pos[j0:j0 + blk_k]
+            s = torch.einsum("bqhd,bkhd->bhqk", q_i.float(), k_j.float()) * scale
+            if logit_cap > 0:
+                s = softcap(s, logit_cap)
+            s = torch.where(position_mask(qpos_i, kpos_j, causal=causal, window=window), s, NEG)
+            m2 = torch.maximum(m, s.amax(dim=-1))
+            pr = torch.exp(s - m2[..., None])
+            alpha = torch.exp(m - m2)
+            l = l * alpha + pr.sum(dim=-1)
+            pv = torch.einsum("bhqk,bkhd->bhqd", pr.to(v_j.dtype).float(), v_j.float())
+            o = o * alpha[..., None] + pv
+            m = m2
+        outs.append((o / l.clamp_min(1e-30)[..., None]).to(q.dtype).transpose(1, 2))
+    return torch.cat(outs, dim=1)
+
+
+def direct_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
+                     logit_cap: float):
+    """Plain masked-softmax attention (materialises the Sq x Sk scores);
+    the oracle of ``blockwise_attention``.  Layout as there."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (q.shape[-1] ** -0.5)
+    if logit_cap > 0:
+        s = softcap(s, logit_cap)
+    s = torch.where(position_mask(q_pos, k_pos, causal=causal, window=window), s, NEG)
+    pr = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence block forward (prefill / forward)
+# ---------------------------------------------------------------------------
+
+
+def attention_forward(p: Attention, x, cfg, positions):
+    """Full-sequence causal self-attention sub-layer through the
+    flash-attention kernel (pre-norm residual handled by the caller)."""
+    if cfg.attn_logit_softcap > 0:
+        raise NotImplementedError("the flash_attention kernel has no logit soft cap; "
+                                  "no configuration of the port's path uses one")
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    k, v = _expand_kv(k, v, cfg.n_heads_p)
+    out = fa_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 positions, positions, causal=True, window=_window(cfg))
+    return _out_proj(p, out.transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# Decode (one new token against a cache)
+# ---------------------------------------------------------------------------
+
+
+def cache_len(cfg, seq_len: int) -> int:
+    """Ring-buffer length: window-bounded archs keep only `window` entries."""
+    if cfg.attn_kind in ("swa", "local") and cfg.window > 0:
+        return min(cfg.window, seq_len)
+    return seq_len
+
+
+def init_attn_cache(cfg, batch: int, seq_len: int, device, model_axis: int = 1) -> dict:
+    """k/v: (B, Sc, KVv, hd); k_pos: (B, Sc) absolute positions of the
+    stored entries, -1 = empty."""
+    hd = cfg.resolved_head_dim
+    kvv = n_kv_virtual(cfg.n_heads_p, cfg.n_kv_p, model_axis)
+    sc = cache_len(cfg, seq_len)
+    dt = getattr(torch, cfg.dtype)
+    return {"k": torch.zeros((batch, sc, kvv, hd), dtype=dt, device=device),
+            "v": torch.zeros((batch, sc, kvv, hd), dtype=dt, device=device),
+            "k_pos": torch.full((batch, sc), -1, dtype=torch.int32, device=device)}
+
+
+def _decode_mha(q, k, v, k_pos, pos, window: int, logit_cap: float):
+    """q: (B, 1, H, hd); k/v: (B, Sc, KVv, hd); k_pos: (B, Sc) -> (B, 1, H, hd)."""
+    H, hd = q.shape[2], q.shape[3]
+    k, v = _expand_kv(k, v, H)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (hd ** -0.5)
+    if logit_cap > 0:
+        s = softcap(s, logit_cap)
+    ok = (k_pos >= 0) & (k_pos <= pos[:, None])
+    if window > 0:
+        ok = ok & (k_pos > pos[:, None] - window)
+    s = torch.where(ok[:, None, None, :], s, NEG)
+    pr = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def attention_decode(p: Attention, x, cache: dict, pos, cfg):
+    """x: (B, 1, D) current token activations; pos: (B,) int positions.
+    Writes the token's k/v into its ring slot (in place) and returns
+    (y (B, 1, D), cache)."""
+    dt = x.dtype
+    q = _proj(x, p.wq, p.bq)
+    if p.q_norm is not None:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+    if cfg.pos_kind == "rope":
+        q = apply_rope(q, *rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta))
+    k, v = _project_kv(p, x, cfg, pos[:, None])
+    kvv = cache["k"].shape[2]
+    rep = kvv // cfg.n_kv_p
+    if rep > 1:
+        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    sc = cache["k"].shape[1]
+    slot = (pos % sc).long()  # ring-buffer write
+    bidx = torch.arange(x.shape[0], device=x.device)
+    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["k_pos"][bidx, slot] = pos.to(torch.int32)
+    out = _decode_mha(q, cache["k"], cache["v"], cache["k_pos"], pos, _window(cfg),
+                      cfg.attn_logit_softcap)
+    return _out_proj(p, out.to(dt)), cache
+
+
+def prefill_cache_entries(p: Attention, x, cfg, positions, seq_len: int,
+                          model_axis: int = 1) -> dict:
+    """The k/v cache contents of a full-sequence pass (prefill): the last
+    `cache_len` entries, in ring layout."""
+    dt = getattr(torch, cfg.dtype)
+    k, v = _project_kv(p, x, cfg, positions)
+    rep = n_kv_virtual(cfg.n_heads_p, cfg.n_kv_p, model_axis) // cfg.n_kv_p
+    if rep > 1:
+        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    sc = cache_len(cfg, seq_len)
+    B, S = x.shape[0], x.shape[1]
+    if sc < S:
+        # keep the trailing window; the ring slot of position p is p % sc,
+        # so roll the entries into ring order
+        shift = (S - sc) % sc
+        k_r = torch.roll(k[:, S - sc:], shift, dims=1)
+        v_r = torch.roll(v[:, S - sc:], shift, dims=1)
+        pos_r = torch.roll(positions[S - sc:], shift)
+        kpos = pos_r[None].expand(B, sc).to(torch.int32).contiguous()
+        return {"k": k_r.to(dt), "v": v_r.to(dt), "k_pos": kpos}
+    pad = sc - S
+    kk = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    vv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    kpos = torch.nn.functional.pad(positions.to(torch.int32), (0, pad), value=-1)
+    return {"k": kk.to(dt), "v": vv.to(dt), "k_pos": kpos[None].expand(B, sc).contiguous()}

@@ -1,0 +1,160 @@
+"""Common model building blocks (port of ``repro.models.common``): the
+parameter factory, norms, rotary embeddings, vocabulary padding.
+
+``Init`` draws every parameter from one explicit ``torch.Generator`` on
+the target device, in float32, then casts to ``param_dtype`` (as the
+reference's ``Init.normal`` does).  With ``generator=None`` it allocates
+uninitialised tensors of the right shape and type, for parameters that
+are about to be loaded (the reference's ``abstract`` mode).  The numbers
+differ from the reference's ``jax.random`` draws; tests carry the
+reference's parameters over (``repro_torch.carry.lm_params_from_arrays``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+def n_kv_virtual(n_heads: int, n_kv: int, model_axis: int) -> int:
+    """Smallest KV-head replication target that (a) is a multiple of n_kv,
+    (b) divides n_heads, and (c) is divisible by the model-axis size, so
+    the KV cache keeps the reference's layout; n_kv when impossible.
+    (``repro.models.sharding.n_kv_virtual``; one card means model_axis=1.)"""
+    if n_kv % model_axis == 0:
+        return n_kv
+    v = n_kv
+    while v <= n_heads:
+        if v % n_kv == 0 and n_heads % v == 0 and v % model_axis == 0:
+            return v
+        v += n_kv
+    return n_kv
+
+
+class Init:
+    """Parameter factory on one device; ``generator=None`` leaves the
+    values uninitialised (for parameters that are loaded next)."""
+
+    def __init__(self, generator: Optional[torch.Generator], param_dtype: torch.dtype,
+                 device: torch.device):
+        self.generator = generator
+        self.param_dtype = param_dtype
+        self.device = device
+
+    def _param(self, value: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(value, requires_grad=False)
+
+    def _empty(self, shape, dtype) -> nn.Parameter:
+        return self._param(torch.empty(tuple(shape), dtype=dtype, device=self.device))
+
+    def normal(self, shape, scale: float = 0.02, dtype=None) -> nn.Parameter:
+        dtype = dtype or self.param_dtype
+        if self.generator is None:
+            return self._empty(shape, dtype)
+        v = torch.randn(tuple(shape), generator=self.generator, dtype=torch.float32,
+                        device=self.device)
+        return self._param((v * scale).to(dtype))
+
+    def fan_in(self, shape, fan_axes=None, dtype=None) -> nn.Parameter:
+        """Normal with 1/sqrt(fan_in) scale (fan = product of the
+        ``fan_axes`` dims, default all but the last)."""
+        if fan_axes is None:
+            fan = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
+        else:
+            fan = math.prod(shape[i] for i in fan_axes)
+        return self.normal(shape, scale=1.0 / math.sqrt(max(fan, 1)), dtype=dtype)
+
+    def const(self, shape, fill, dtype=None) -> nn.Parameter:
+        dtype = dtype or self.param_dtype
+        if self.generator is None:
+            return self._empty(shape, dtype)
+        return self._param(torch.full(tuple(shape), fill, dtype=dtype, device=self.device))
+
+    def zeros(self, shape, dtype=None) -> nn.Parameter:
+        return self.const(shape, 0, dtype)
+
+    def ones(self, shape, dtype=None) -> nn.Parameter:
+        return self.const(shape, 1, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, scale, eps: float):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(dt)
+
+
+def layer_norm(x, scale, bias, eps: float):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
+class Norm(nn.Module):
+    """RMSNorm (``scale`` only, applied as ``1 + scale``) or LayerNorm
+    (``scale`` and ``bias``), as ``cfg.norm_kind`` says."""
+
+    def __init__(self, ini: Init, cfg, width: Optional[int] = None):
+        super().__init__()
+        width = width or cfg.d_model
+        self.eps = cfg.norm_eps
+        if cfg.norm_kind == "rmsnorm":
+            self.scale = ini.zeros((width,))
+            self.bias = None
+        else:
+            self.scale = ini.ones((width,))
+            self.bias = ini.zeros((width,))
+
+    def forward(self, x):
+        if self.bias is None:
+            return rms_norm(x, self.scale, self.eps)
+        return layer_norm(x, self.scale, self.bias, self.eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(positions, head_dim: int, theta: float):
+    """positions: int (..., S). Returns (sin, cos), each (..., S, head_dim/2),
+    in float32."""
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=positions.device), exps)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x, sin, cos):
+    """x: (B, S, H, D); sin/cos: (B, S, half) or (S, half).  Split-half
+    convention, computed in float32."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if sin.dim() == 2:  # (S, half): broadcast over batch and heads
+        s, c = sin[None, :, None, :], cos[None, :, None, :]
+    else:  # (B, S, half)
+        s, c = sin[:, :, None, :], cos[:, :, None, :]
+    x1f, x2f = x1.to(torch.float32), x2.to(torch.float32)
+    out = torch.cat([x1f * c - x2f * s, x2f * c + x1f * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def padded_vocab(vocab_size: int, multiple: int = 128) -> int:
+    return ((vocab_size + multiple - 1) // multiple) * multiple
+
+
+def softcap(x, cap: float):
+    return torch.tanh(x / cap) * cap if cap > 0 else x

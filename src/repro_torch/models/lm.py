@@ -1,0 +1,170 @@
+"""Decoder-only language model (port of ``repro.models.lm``) as
+``nn.Module``s:
+
+    model = init(cfg, seed, device)                 # random weights from a seed
+    model = from_state_dict(cfg, state, device)     # carried weights
+    logits = model(tokens)                          # (B, S, Vp) float32
+    logits, caches = model.prefill(tokens, cache_len)
+    logits, caches = model.decode_step(caches, tokens, pos)
+
+``model.layers`` is one ``nn.ModuleList`` in the order the reference's
+``_run_units`` runs its layers: the remainder layers, then the units.
+Parameter names are the reference's leaf names (``embed``,
+``final_norm.scale``, ``layers.<i>.attn.wq``, ...; see
+``repro_torch.carry.lm_params_from_arrays``).  ``caches`` is a list with
+one dict per layer, ``{"attn": {...}}`` or ``{"rec": {...}}``.
+
+The blocks this slice runs are attention and RG-LRU recurrent blocks with
+dense FFNs.  The other block kinds and options raise
+``NotImplementedError``: mLSTM / sLSTM blocks, the MoE FFN,
+encoder-decoder cross-attention and image prefixes (with learned
+positions) are ported with the other model families (ROADMAP Queue 1,
+item 9c).
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import recurrent as rec_mod
+from repro_torch.models.common import Init, Norm, padded_vocab
+from repro_torch.models.mlp import MLP
+
+_LATER = "is ported with the other model families (ROADMAP Queue 1, item 9c)"
+
+
+def layer_kinds(cfg) -> List[str]:
+    """Block kind of every layer: the remainder layers, then the units."""
+    pattern = cfg.resolved_pattern
+    rem = [pattern[i % cfg.unit_len] for i in range(cfg.n_rem_layers)]
+    return rem + list(pattern) * cfg.n_units
+
+
+class Block(nn.Module):
+    def __init__(self, ini: Init, cfg, kind: str):
+        super().__init__()
+        if kind not in ("attn", "rec"):
+            raise NotImplementedError(f"block kind {kind!r} {_LATER}")
+        if kind == "attn" and cfg.is_moe and cfg.d_ff > 0:
+            raise NotImplementedError(f"the MoE FFN {_LATER}")
+        self.cfg, self.kind = cfg, kind
+        self.norm1 = Norm(ini, cfg)
+        if kind == "attn":
+            self.attn = attn_mod.Attention(ini, cfg)
+        else:
+            self.rec = rec_mod.RecBlock(ini, cfg)
+        if cfg.d_ff > 0:
+            self.norm2 = Norm(ini, cfg)
+            self.ffn = MLP(ini, cfg)
+
+    def _ffn(self, x):
+        if self.cfg.d_ff > 0:
+            x = x + self.ffn(self.norm2(x))
+        return x
+
+    def _mix(self, h, positions):
+        if self.kind == "attn":
+            return attn_mod.attention_forward(self.attn, h, self.cfg, positions)
+        return rec_mod.rec_forward(self.rec, h)
+
+    def forward(self, x, positions):
+        """Full-sequence block."""
+        return self._ffn(x + self._mix(self.norm1(x), positions))
+
+    def prefill(self, x, positions, seq_len: int):
+        """Full-sequence block and the cache its decode starts from (the
+        reference's ``_block_prefill_cache``: a second pass over the
+        same normed input)."""
+        h = self.norm1(x)
+        if self.kind == "attn":
+            cache = {"attn": attn_mod.prefill_cache_entries(self.attn, h, self.cfg, positions,
+                                                            seq_len)}
+        else:
+            cache = {"rec": rec_mod.rec_prefill_cache(self.rec, h, self.cfg.conv_width)}
+        return self._ffn(x + self._mix(h, positions)), cache
+
+    def decode(self, x, cache: dict, pos):
+        """One token per sequence; returns (x, cache)."""
+        h = self.norm1(x)
+        if self.kind == "attn":
+            y, c = attn_mod.attention_decode(self.attn, h, cache["attn"], pos, self.cfg)
+            cache = {"attn": c}
+        else:
+            y, c = rec_mod.rec_decode(self.rec, h, cache["rec"])
+            cache = {"rec": c}
+        return self._ffn(x + y), cache
+
+
+class LM(nn.Module):
+    def __init__(self, cfg, ini: Init):
+        super().__init__()
+        if cfg.is_encdec:
+            raise NotImplementedError(f"encoder-decoder cross-attention {_LATER}")
+        if cfg.n_img_tokens:
+            raise NotImplementedError(f"the image prefix {_LATER}")
+        if cfg.pos_kind not in ("rope", "none"):
+            raise NotImplementedError(f"pos_kind {cfg.pos_kind!r} {_LATER}")
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        D, Vp = cfg.d_model, padded_vocab(cfg.vocab_size)
+        self.embed = ini.normal((Vp, D), scale=1.0)
+        self.final_norm = Norm(ini, cfg)
+        self.lm_head = None if cfg.tie_embeddings else ini.fan_in((D, Vp))
+        self.layers = nn.ModuleList(Block(ini, cfg, kind) for kind in layer_kinds(cfg))
+
+    def _embed(self, tokens):
+        return self.embed[tokens].to(self.dtype)
+
+    def _logits(self, x):
+        w = self.embed.T if self.lm_head is None else self.lm_head
+        return (self.final_norm(x) @ w.to(x.dtype)).to(torch.float32)
+
+    def forward(self, tokens):
+        """tokens (B, S) -> logits (B, S, Vp) float32."""
+        x = self._embed(tokens)
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        for layer in self.layers:
+            x = layer(x, positions)
+        return self._logits(x)
+
+    def prefill(self, tokens, cache_len: int = 0):
+        """Full-context pass: (last-token logits (B, 1, Vp), caches).
+        cache_len: the KV-cache allocation (>= prompt + decode budget);
+        defaults to the prompt length."""
+        x = self._embed(tokens)
+        S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        caches = []
+        for layer in self.layers:
+            x, cache = layer.prefill(x, positions, max(cache_len, S))
+            caches.append(cache)
+        return self._logits(x[:, -1:]), caches
+
+    def decode_step(self, caches: list, tokens, pos):
+        """tokens (B, 1) at absolute positions pos (B,) -> (logits
+        (B, 1, Vp), caches); attention caches are updated in place."""
+        x = self._embed(tokens)
+        out = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer.decode(x, cache, pos)
+            out.append(cache)
+        return self._logits(x), out
+
+
+def init(cfg, seed: int = 0, device: DeviceLike = None) -> LM:
+    """The model with random weights drawn on ``device`` from ``seed``."""
+    dev = resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return LM(cfg, Init(gen, getattr(torch, cfg.param_dtype), dev)).eval()
+
+
+def from_state_dict(cfg, state: dict, device: DeviceLike = None) -> LM:
+    """The model with the weights of ``state`` (cast to ``param_dtype``)."""
+    dev = resolve(device)
+    model = LM(cfg, Init(None, getattr(torch, cfg.param_dtype), dev))
+    model.load_state_dict(state)
+    return model.eval()

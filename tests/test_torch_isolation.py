@@ -22,6 +22,10 @@ COPIES = [
     "core/ingest.py", "core/__init__.py", "storage/serialize.py",
     "storage/kvstore.py", "data/temporal_graph_gen.py", "taf/son.py",
     "taf/replay.py", "taf/operators.py", "taf/__init__.py",
+    "configs/__init__.py", "configs/granite_3_8b.py", "configs/minitron_8b.py",
+    "configs/mixtral_8x22b.py", "configs/phi3_5_moe_42b_a6_6b.py",
+    "configs/phi_3_vision_4_2b.py", "configs/qwen2_7b.py", "configs/qwen3_1_7b.py",
+    "configs/recurrentgemma_9b.py", "configs/whisper_small.py", "configs/xlstm_350m.py",
 ]
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro\.", re.M)
 
