@@ -31,7 +31,12 @@ one JSON line; any failure exits non-zero:
    bit; PageRank within atol=1e-6, rtol=1e-5; attention within 2e-5 in
    float32 and 2e-2 in bf16, RG-LRU within 2e-5, the reference's kernel
    test tolerances), on the inputs each step of the main paths gave it,
-   at headline shapes and on the reference's kernel-test grid; device times from
+   at headline shapes (motif also on an asymmetric stack with half its
+   diagonal set) and on the reference's kernel-test grid, plus a bf16
+   case at each compiled head dim and the attention mask check: q = 0
+   and v holding the bits of each key's position, so one key more or
+   less in a window moves an output by more than its 2^-8 bound (with
+   and without holes in k_pos); device times from
    CUDA events, beside the plain version's, one library call's where
    there is one, and the bound: the larger of the bytes the function
    must move over the memory rate and the operations these inputs need
@@ -73,6 +78,10 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 RGLRU_TOL = dict(atol=2e-5, rtol=2e-5)
+# the mask check (q = 0, v = key-position bits): bf16 rounds its outputs by
+# at most 2^-9, one key more or less in a window of 64 moves a bit column
+# by at least 0.5 / 65
+MASK_TOL = dict(atol=2.0 ** -8, rtol=0.0)
 
 
 def emit(**obj):
@@ -601,10 +610,11 @@ def attention_work(q, k, v, q_pos, k_pos, causal=True, window=0) -> tuple:
     return 4 * D * pairs * B * H, nbytes, pairs * B * H
 
 
-def kernel_case(name, args, kw, tag):
+def kernel_case(name, args, kw, tag, tol=None):
     """Run one kernel on ``args`` against its plain version: bit-identical
-    (PageRank, attention, RG-LRU: within their tolerance, and the same bits
-    on a second run) or fail; returns the times, bound and error."""
+    (PageRank, attention, RG-LRU: within their tolerance, or ``tol``, and
+    the same bits on a second run) or fail; returns the times, bound and
+    error."""
     from repro_torch.kernels.delta_overlay import ops as ov_ops
     from repro_torch.kernels.delta_overlay import ref as ov_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -618,7 +628,7 @@ def kernel_case(name, args, kw, tag):
     from repro_torch.kernels.temporal_pagerank import ops as pr_ops
     from repro_torch.kernels.temporal_pagerank import ref as pr_ref
 
-    library, peak, tol = None, TF32_OPS_PER_S, None
+    library, peak = None, TF32_OPS_PER_S
     if name == "delta_overlay.overlay":
         kern, plain = ov_ops.overlay, ov_ref.overlay_ref
         ops, nbytes = 0, overlay_bytes(args, batch=False)
@@ -654,7 +664,7 @@ def kernel_case(name, args, kw, tag):
     elif name == "flash_attention":
         q = args[0]
         kern = fa_ops.flash_attention
-        tol = ATTN_TOL[q.dtype]
+        tol = tol or ATTN_TOL[q.dtype]
 
         def plain(*a, **k):
             return fa_ref.attention_ref(*a, **k).to(a[0].dtype)
@@ -745,12 +755,37 @@ def headline_inputs(dev):
         tag = f"B={B} H={H} Sq={Sq} Sk={Sk} D={D} {str(dtype)[6:]} causal={causal} " \
               f"window={window}" + (f" holes after {holes}" if holes else "")
         return ("flash_attention", tag, [q, k, v, q_pos, k_pos],
-                dict(causal=causal, window=window))
+                dict(causal=causal, window=window), None)
+
+    def mask_check(holes):
+        """bf16, q = 0: every allowed key weighs exactly 1/n, so out[..., :12]
+        is the mean of the allowed keys' position bits and out[..., 12] is 1
+        (0 for a query with no key).  Causal, window 64, S = 700 (no multiple
+        of 64 or 128), one KV head at stride 0.  ``holes``: 10% of the keys
+        and the whole tile of keys 320..383 are holes (-1), so query 383
+        sees no key; a hole's v holds the bits of its index."""
+        B, H, S, D = 2, 4, 700, 128
+        idx = torch.arange(S, dtype=torch.int32, device=dev)
+        k_pos = idx.clone()
+        if holes:
+            k_pos[torch.rand(S, generator=gd, device=dev) < 0.1] = -1
+            k_pos[320:384] = -1
+        code = torch.where(k_pos >= 0, k_pos, idx)
+        v = torch.zeros(B, S, 1, D, device=dev)
+        v[..., :12] = ((code[:, None] >> torch.arange(12, device=dev)) & 1).float()[:, None]
+        v[..., 12] = 1.0
+        k = torch.randn(B, S, 1, D, generator=gd, device=dev)
+        q = torch.zeros(B, S, H, D, dtype=torch.bfloat16, device=dev).transpose(1, 2)
+        k, v = (t.to(torch.bfloat16).expand(B, S, H, D).transpose(1, 2) for t in (k, v))
+        tag = f"mask check B={B} H={H} S={S} D={D} bf16 causal window=64 KV head stride 0" \
+            + (" holes" if holes else "")
+        return ("flash_attention", tag, [q, k, v, idx, k_pos],
+                dict(causal=True, window=64), MASK_TOL)
 
     def rglru(B, S, W):
         la = -torch.rand(B, S, W, generator=gd, device=dev).abs() * 0.5
         return ("rglru_scan", f"B={B} S={S} W={W}",
-                [la, torch.randn(B, S, W, generator=gd, device=dev)], {})
+                [la, torch.randn(B, S, W, generator=gd, device=dev)], {}, None)
 
     f32, bf16 = torch.float32, torch.bfloat16
     dense = [(f"T={T} N={N}", analytics(T, N))
@@ -759,11 +794,18 @@ def headline_inputs(dev):
           attention(1, 2, 96, 160, 32, True, 48, f32), attention(1, 1, 64, 256, 64, False, 0, f32),
           attention(2, 2, 1, 96, 32, True, 0, f32), attention(1, 1, 1, 64, 16, True, 0, f32, 40),
           attention(1, 2, 300, 300, 256, True, 128, bf16),
+          attention(1, 2, 200, 200, 64, True, 0, bf16), mask_check(False), mask_check(True),
           rglru(1, 128, 128), rglru(2, 64, 256), rglru(1, 96, 130), rglru(2, 33, 64),
           rglru(1, 40, 32)]
+    def asymmetric(T, N, p=0.02):
+        """A 0/1 stack with no symmetry and half the diagonal set."""
+        a = (torch.rand(T, N, N, generator=g) < p).float()
+        a[:, torch.arange(0, N, 2), torch.arange(0, N, 2)] = 1.0
+        return [a.to(dev)]
+
     dense = [(k, tag, a) for tag, a in dense
              for k in ("temporal_pagerank.pagerank", "temporal_cc.cc")]
-    return lm + [(k, tag, a, {}) for k, tag, a in dense + [
+    return lm + [(k, tag, a, {}, None) for k, tag, a in dense + [
         ("delta_overlay.overlay", "h=8 P=16 S=65536 K=4", stacks(8, 16, 65536, 4)),
         ("delta_overlay.overlay", "h=8 P=16 S=65537 K=4", stacks(8, 16, 65537, 4)),
         ("delta_overlay.overlay_batch", "h=8 P=16 S=65536 K=4 T=32",
@@ -772,6 +814,8 @@ def headline_inputs(dev):
          stacks(8, 16, 65537, 4) + [tmask(8, 32)]),
         ("temporal_motif.motif", "T=4 N=4096", adjacency(4, 4096)),
         ("temporal_motif.motif", "T=4 N=4000", adjacency(4, 4000)),
+        ("temporal_motif.motif", "T=2 N=1000 asymmetric, half the diagonal set",
+         asymmetric(2, 1000)),
     ]]
 
 
@@ -840,7 +884,8 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = _build.build()
     ptxas = {n: [ln.strip() for ln in _build.library(n).with_suffix(".log")
-                 .read_text().splitlines() if "Used" in ln]
+                 .read_text().splitlines()
+                 if any(w in ln for w in ("Used", "spill", "Performance Loss"))]
              for n in _build.NAMES}
     emit(phase="build", seconds=time.perf_counter() - t0, per_source=seconds,
          ptxas=ptxas)
@@ -867,10 +912,10 @@ def main() -> int:
         if inputs is None:
             fail(f"no main-path inputs recorded for {kname}")
         row = kernel_case(kname, *inputs, "main path")
-        others = [(tag, a, kw) for (n, tag), (a, kw) in recorder.inputs.items()
+        others = [(tag, a, kw, None) for (n, tag), (a, kw) in recorder.inputs.items()
                   if n == kname and tag != "main path"]
-        others += [(tag, a, kw) for n, tag, a, kw in headlines if n == kname]
-        headline = {tag: kernel_case(kname, a, kw, tag) for tag, a, kw in others}
+        others += [(tag, a, kw, tol) for n, tag, a, kw, tol in headlines if n == kname]
+        headline = {tag: kernel_case(kname, a, kw, tag, tol) for tag, a, kw, tol in others}
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=launches[kname],
                          max_abs_err=max([row["max_abs_err"]] + [

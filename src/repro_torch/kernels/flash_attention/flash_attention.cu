@@ -3,10 +3,9 @@
 // where key j is allowed for query i iff k_pos[j] >= 0 (-1 is a hole of a
 // ring cache), k_pos[j] <= q_pos[i] when causal, and
 // k_pos[j] > q_pos[i] - window when window > 0.  A query with no allowed
-// key gives 0.  scale = D^-1/2.  q, k, v: (B, H, S, D) float32 or bf16 with
-// any strides on B, H and S (a stride-0 head axis expands MQA's one KV
-// head for free) and unit stride on D; out has q's type.  Any Sq and Sk;
-// D a multiple of 16 up to 256.
+// key gives 0.  scale = D^-1/2.  q, k, v: (B, H, S, D) with any strides on
+// B, H and S and unit stride on D; out has q's type.  Any Sq and Sk; D a
+// multiple of 16 up to 256.
 //
 // Replaces the Pallas TPU kernel _fa_kernel / flash_attention_pallas in
 // src/repro/kernels/flash_attention/flash_attention.py (grid (B, H, nq,
@@ -14,60 +13,62 @@
 // its padding of S to the block size.
 //
 // Bound: 4 D operations per allowed (query, key) pair against reading q,
-// k and v and writing out once: at D = 256 the operations bound it by far
-// (the tensor cores' bf16 rate).  This first kernel runs the products on
-// CUDA cores in float32, as the Pallas kernel casts to float32, so it
-// reaches at best the card's float32 rate, 1/15 of the bf16 tensor rate;
-// mma.sync / wgmma on bf16 tiles is later work.
-// Design: one block of 256 threads per (64-query tile, h, b); KV tiles of
-// 64 keys staged in shared memory as float32 (Q and K transposed, so the
-// score loop reads both with float4 loads; rows padded by 4 floats).  Each
-// thread holds a 4 x 4 block of the 64 x 64 scores and a 4 x (D / 16)
-// block of the float32 output accumulator in registers (64 floats at
-// D = 256: the 64 KB accumulator of a 64-row tile lives in the registers
-// of the whole block, not in one place).  Each warp runs the online
-// softmax of 8 rows; m, l and the rescale factor live in shared memory.
-// Before it loads a KV tile the block tests the tile's positions: a tile
-// with no valid key, or whose keys all lie after the tile's last query
-// (causal) or at or before its first query minus the window, is masked
-// for every query of the tile, an exact no-op of the online softmax
-// (m stays, alpha = 1, p = 0), so it is skipped.  At S = 4096 and window
-// 2048 that leaves 39% of the tiles a full (nq, nk) grid visits.
-// Shared memory at D = 256: 222,464 bytes, one block per SM.
+// k and v and writing out once: at D = 256 the operations bound it by far.
+// Two kernels, chosen by the input type (a fixed dispatch, not a fallback):
+//
+// fa_wgmma<DP>, bfloat16 (the serving path): the products on the tensor
+// cores, as the bf16 rate bounds them.  One block per (128-query tile, h,
+// b) with three warpgroups: a producer warp issues TMA loads (Q once; K and
+// V tiles of 64 keys through a 2-stage ring of mbarriers), two consumer
+// warpgroups own 64 query rows each (setmaxnreg moves the registers to
+// them: the producer drops to 24 a thread and the consumers rise to 240,
+// which is the 168 x 384 the block holds; a 64 x DP f32 O accumulator is
+// DP / 2 of them).  With each tile the producer fills a slot of the stage:
+// the tile's key positions, their range and whether any is a hole, so the
+// consumers read no k_pos from device memory and never visit a tile the
+// block skips; a last slot with no tile ends the stream.
+// S = Q K^T is wgmma m64n64k16 with both operands in shared memory,
+// K-major; the online softmax runs on the accumulator fragments (row max
+// and sum over the 4 lanes of a quad, exp2 on scores pre-scaled by
+// scale * log2 e); P is rounded to bf16 in registers and is the A operand
+// of O += P V, one m64nDPk16 per 16 keys with V read from shared memory
+// MN-major (the transpose bit), its DP / 64 atoms 8 KB apart.  P
+// in bf16 is what the reference's model path multiplies
+// (src/repro/models/attention.py, blockwise_attention); the row sums l
+// add the f32 p, as there.  O is rescaled only when some row of the warp
+// has a new max (alpha != 1): past the first tiles of a row it rarely
+// does.  The epilogue stages each warpgroup's O / l rows in its own rows
+// of the Q tile, then writes each row's D * 2 bytes 16 bytes a thread.
+// Tiles use the 128-byte swizzle that TMA writes and the wgmma
+// descriptors read; D is compiled at 64, 128 and 256 (DP),
+// a smaller D zero-filled by TMA past D and never stored.  Tensor maps are
+// 4-D (D, S, H, B) over the tensors' own strides; a stride-0 axis (MQA's
+// expanded KV head) is passed as length 1 and the kernel maps h to it.
+// The producer tests each tile's key positions against the block's 128
+// queries: a tile no query may see is never loaded; a consumer warpgroup
+// also skips the tiles none of its 64 rows sees, runs a tile every row
+// sees whole without the per-element mask, and masks per element only the
+// tiles that straddle a mask edge.  No atomics:
+// two runs give the same bits.  Shared memory at DP = 256: Q 64 KB + 2 x
+// (K 32 KB + V 32 KB) = 192 KB, one block per SM.
+//
+// fa_kernel, float32 (the exact path, 2e-5; TF32 would not hold it): one
+// block of 256 threads per (64-query tile, h, b); KV tiles of 64 keys
+// staged in shared memory (Q and K transposed, so the score loop reads
+// both with float4 loads); f32 products on CUDA cores; each thread holds a
+// 4 x 4 block of the scores and a 4 x (D / 16) block of the output
+// accumulator; each warp runs the online softmax of 8 rows.  The same tile
+// skip, tested against the block's 64 queries.  222,464 bytes of shared
+// memory at D = 256.
 #include <climits>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BQ = 64;        // queries of a block
-constexpr int BK = 64;        // keys of a KV tile
-constexpr int THREADS = 256;  // 16 x 16: ty owns rows 4ty..4ty+3
-constexpr int QT_LD = BQ + 4;
-constexpr int KT_LD = BK + 4;
-constexpr int MAX_DC = 16;    // D / 16 output columns per thread
 constexpr float NEG = -0.7f * 3.4028234663852886e38f;  // the reference's
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  const int* q_pos;
-  const int* k_pos;
-  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-  int Sq, Sk, D, causal, window;
-  float scale;
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -89,12 +90,44 @@ __device__ __forceinline__ void warp_min_max(int& mn, int& mx) {
   }
 }
 
+// A KV tile no query of [qmin, qmax] may see: no valid key, all keys after
+// qmax (causal), or all at or before qmin - window.
+__device__ __forceinline__ bool tile_hidden(int kmin, int kmax, int qmin, int qmax, int causal,
+                                            int window) {
+  return kmin > kmax || qmin > qmax || (causal && kmin > qmax) ||
+         (window > 0 && (long long)kmax <= (long long)qmin - window);
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA-core kernel
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int BQ = 64;        // queries of a block
+constexpr int BK = 64;        // keys of a KV tile
+constexpr int THREADS = 256;  // 16 x 16: ty owns rows 4ty..4ty+3
+constexpr int QT_LD = BQ + 4;
+constexpr int KT_LD = BK + 4;
+constexpr int MAX_DC = 16;    // D / 16 output columns per thread
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  const int* q_pos;
+  const int* k_pos;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
+  int Sq, Sk, D, causal, window;
+  float scale;
+};
+
 size_t smem_bytes(int D) {
   return sizeof(float) * ((size_t)D * QT_LD + (size_t)D * KT_LD + (size_t)BK * D +
                           BQ * BK + 3 * BQ) + sizeof(int) * (BQ + BK);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) fa_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   const int D = p.D;
@@ -113,14 +146,14 @@ __global__ void __launch_bounds__(THREADS, 1) fa_kernel(const Params p) {
   const int lane = tid % 32, warp = tid / 32;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int nq = min(BQ, p.Sq - q0);
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+  float* ob = p.o + b * p.o_sb + h * p.o_sh;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    Qt[d * QT_LD + r] = r < nq ? to_f(qb[(long long)(q0 + r) * p.q_ss + d]) : 0.f;
+    Qt[d * QT_LD + r] = r < nq ? qb[(long long)(q0 + r) * p.q_ss + d] : 0.f;
   }
   if (tid < BQ) {
     qpos_s[tid] = tid < nq ? p.q_pos[q0 + tid] : 0;
@@ -141,7 +174,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_kernel(const Params p) {
     }
   }
   __syncthreads();
-  const long long qmin = range[0], qmax = range[1];
+  const int qmin = range[0], qmax = range[1];
 
   const int DC = D / 16;
   float o[4][MAX_DC];
@@ -169,9 +202,7 @@ __global__ void __launch_bounds__(THREADS, 1) fa_kernel(const Params p) {
       }
     }
     __syncthreads();  // kpos_s and the key range are visible
-    const long long kmin = range[2], kmax = range[3];
-    const bool skip = kmin > kmax || (p.causal && kmin > qmax) ||
-                      (p.window > 0 && kmax <= qmin - p.window);
+    const bool skip = tile_hidden(range[2], range[3], qmin, qmax, p.causal, p.window);
     __syncthreads();  // every thread has read range[] before warp 0 rewrites it
     if (skip) continue;
 
@@ -179,8 +210,8 @@ __global__ void __launch_bounds__(THREADS, 1) fa_kernel(const Params p) {
       const int c = i / D, d = i % D;
       float kv = 0.f, vv = 0.f;
       if (c < nk) {
-        kv = to_f(kb[(long long)(k0 + c) * p.k_ss + d]);
-        vv = to_f(vb[(long long)(k0 + c) * p.v_ss + d]);
+        kv = kb[(long long)(k0 + c) * p.k_ss + d];
+        vv = vb[(long long)(k0 + c) * p.v_ss + d];
       }
       Kt[d * KT_LD + c] = kv;
       Vs[c * D + d] = vv;
@@ -268,47 +299,549 @@ __global__ void __launch_bounds__(THREADS, 1) fa_kernel(const Params p) {
     const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < MAX_DC; ++j)
-      if (j < DC) ob[(long long)(q0 + r) * p.o_ss + tx + 16 * j] = from_f<T>(o[i][j] / l);
+      if (j < DC) ob[(long long)(q0 + r) * p.o_ss + tx + 16 * j] = o[i][j] / l;
   }
 }
 
-template <typename T>
-int launch(const Params& p, int B, int H, cudaStream_t st) {
-  const size_t smem = smem_bytes(p.D);
-  cudaError_t e = cudaFuncSetAttribute(fa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma kernel fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BQ = 128;                         // queries of a block
+constexpr int BK = 64;                          // keys of a KV tile
+constexpr int STAGES = 2;                       // K/V ring depth
+constexpr int CONSUMERS = 2;                    // warpgroups of 64 query rows
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
+constexpr int ROW = 128;                        // bytes of a swizzled row: 64 bf16
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Params {
+  __nv_bfloat16* o;
+  const int* q_pos;
+  const int* k_pos;
+  long long o_sb, o_sh, o_ss;
+  int Sq, Sk, D, causal, window, kv_heads, kv_batch;
+  float scale;
+};
+
+// DP / 64 swizzle atoms of rows x 128 bytes each; Q once, K and V per stage
+template <int DP> struct Layout {
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;  // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; lbo and sbo in bytes
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from moving accesses of r across a wgmma issue or wait
+template <int N> __device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// operand lists of 32 accumulator registers: %o..%o+31, and d[o]..d[o+31]
+#define WG_REGS_0 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_REGS_32 \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, " \
+  "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_REGS_64 \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, " \
+  "%81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define WG_REGS_96 \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, " \
+  "%125, %126, %127"
+#define WG_OUT32(d, o) \
+  "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), \
+      "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7]), "+f"(d[o + 8]), "+f"(d[o + 9]), \
+      "+f"(d[o + 10]), "+f"(d[o + 11]), "+f"(d[o + 12]), "+f"(d[o + 13]), "+f"(d[o + 14]), \
+      "+f"(d[o + 15]), "+f"(d[o + 16]), "+f"(d[o + 17]), "+f"(d[o + 18]), "+f"(d[o + 19]), \
+      "+f"(d[o + 20]), "+f"(d[o + 21]), "+f"(d[o + 22]), "+f"(d[o + 23]), "+f"(d[o + 24]), \
+      "+f"(d[o + 25]), "+f"(d[o + 26]), "+f"(d[o + 27]), "+f"(d[o + 28]), "+f"(d[o + 29]), \
+      "+f"(d[o + 30]), "+f"(d[o + 31])
+
+// d (+)= A B, 64 x 64 x 16: A and B from shared memory, both K-major
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS_0 "}, %32, %33, p, 1, 1, "
+      "0, 0;\n}\n"
+      : WG_OUT32(d, 0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, 64 x N x 16: A from registers, B from shared memory MN-major
+// in N / 64 atoms of 64 columns, the leading byte offset apart
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS_0 "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_OUT32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_REGS_0 ", " WG_REGS_32 "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_OUT32(d, 0), WG_OUT32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WG_REGS_0 ", " WG_REGS_32 ", "
+      WG_REGS_64 ", " WG_REGS_96 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_OUT32(d, 0), WG_OUT32(d, 32), WG_OUT32(d, 64), WG_OUT32(d, 96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    fa_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, const Params p) {
+  using L = Layout<DP>;
+  constexpr int ATOMS = DP / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const Ks = Qs + L::Q_BYTES;                // [STAGES][ATOMS][BK][ROW]
+  uint8_t* const Vs = Ks + STAGES * L::KV_BYTES;      // [STAGES][ATOMS][BK][ROW]
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], qbar;
+  __shared__ int qrange[4][2];  // min, max of q_pos over each 32 rows
+  // per stage: the tile's index (nkt: no more tiles), its valid key range,
+  // whether it holds a hole, and its 64 key positions (-1 past Sk)
+  __shared__ int slot[STAGES][4];
+  __shared__ int slot_kpos[STAGES][BK];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = p.kv_heads == 1 ? 0 : h, kvb = p.kv_batch == 1 ? 0 : b;
+  const int nkt = (p.Sk + BK - 1) / BK;
+
+  if (warp < 4) {
+    int mn = INT_MAX, mx = INT_MIN;
+    if (q0 + tid < p.Sq) mn = mx = p.q_pos[q0 + tid];
+    warp_min_max(mn, mx);
+    if (lane == 0) {
+      qrange[warp][0] = mn;
+      qrange[warp][1] = mx;
+    }
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 128);
+    }
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int bq_min = min(min(qrange[0][0], qrange[1][0]), min(qrange[2][0], qrange[3][0]));
+  const int bq_max = max(max(qrange[0][1], qrange[1][1]), max(qrange[2][1], qrange[3][1]));
+
+  if (warp >= CONSUMERS * 4) {
+    // ---- producer warpgroup: one warp issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp != CONSUMERS * 4) return;
+    if (lane == 0) {
+      mbar_expect_tx(&qbar, L::Q_BYTES);
+      for (int c = 0; c < ATOMS; ++c)
+        tma_load(Qs + c * BQ * ROW, &qmap, &qbar, 64 * c, q0, h, b);
+    }
+    // each tile the block's queries may see goes to the next stage of the
+    // ring with its slot; t == nkt closes the stream with a slot and no tile
+    int n = 0;
+    for (int t = 0; t <= nkt; ++t) {
+      int kp0 = -1, kp1 = -1, mn = INT_MAX, mx = INT_MIN, hole = 0;
+      if (t < nkt) {
+        const int j = t * BK + lane;
+        kp0 = j < p.Sk ? p.k_pos[j] : -1;
+        kp1 = j + 32 < p.Sk ? p.k_pos[j + 32] : -1;
+        mn = __reduce_min_sync(0xffffffffu, min(kp0 < 0 ? INT_MAX : kp0, kp1 < 0 ? INT_MAX : kp1));
+        mx = __reduce_max_sync(0xffffffffu, max(kp0, kp1));
+        hole = __reduce_or_sync(0xffffffffu, (kp0 < 0) | (kp1 < 0));
+        if (mx < 0) mx = INT_MIN;  // no valid key
+        if (tile_hidden(mn, mx, bq_min, bq_max, p.causal, p.window)) continue;
+      }
+      const int s = n % STAGES;
+      if (lane == 0) mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+      __syncwarp();
+      slot_kpos[s][lane] = kp0;
+      slot_kpos[s][lane + 32] = kp1;
+      if (lane == 0) {
+        slot[s][0] = t;
+        slot[s][1] = mn;
+        slot[s][2] = mx;
+        slot[s][3] = hole;
+      }
+      __syncwarp();
+      if (lane == 0) {  // the arrival publishes the slot with the tile
+        if (t == nkt) {
+          mbar_arrive(&full[s]);
+        } else {
+          mbar_expect_tx(&full[s], 2 * L::KV_BYTES);
+          for (int c = 0; c < ATOMS; ++c) {
+            const int at = s * L::KV_BYTES + c * BK * ROW;
+            tma_load(Ks + at, &kmap, &full[s], 64 * c, t * BK, kvh, kvb);
+            tma_load(Vs + at, &vmap, &full[s], 64 * c, t * BK, kvh, kvb);
+          }
+        }
+      }
+      __syncwarp();
+      ++n;
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = warp / 4, quad = lane % 4;
+    const int wq_min = min(qrange[2 * wg][0], qrange[2 * wg + 1][0]);
+    const int wq_max = max(qrange[2 * wg][1], qrange[2 * wg + 1][1]);
+    // this thread's rows: r0 and r0 + 8 of the tile
+    const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+    int hi[2], lo[2];  // key k is allowed for the row iff 0 <= k <= hi and k > lo
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + r0 + 8 * r;
+      hi[r] = INT_MAX;
+      lo[r] = INT_MIN;
+      if (row < p.Sq) {
+        const long long qp = p.q_pos[row];
+        if (p.causal) hi[r] = (int)qp;
+        if (p.window > 0) lo[r] = (int)max(qp - p.window, (long long)INT_MIN);
+      }
+    }
+    const float sl2 = p.scale * LOG2E;
+    float o[DP / 2];  // o[32 c + i]: the n64 layout of columns 64 c..
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // l: this thread's partial row sums
+    mbar_wait(&qbar, 0);
+
+    for (int n = 0;; ++n) {
+      const int s = n % STAGES;
+      mbar_wait(&full[s], (n / STAGES) & 1);
+      if (slot[s][0] == nkt) break;
+      const int mn = slot[s][1], mx = slot[s][2], hole = slot[s][3];
+      // this thread's columns 8 j + 2 quad + e; the quad covers all 64
+      const int* kpos = slot_kpos[s] + 2 * quad;
+      if (!tile_hidden(mn, mx, wq_min, wq_max, p.causal, p.window)) {
+        const bool whole = !hole && (!p.causal || mx <= wq_min) &&
+                           (p.window <= 0 || (long long)mn > (long long)wq_max - p.window);
+        // descriptors of the tiles' starts; a step adds its byte offset / 16
+        const uint64_t qd = sw128_desc(Qs + wg * 64 * ROW, 16, 1024);
+        const uint64_t kd = sw128_desc(Ks + s * L::KV_BYTES, 16, 1024);
+        const uint64_t vd = sw128_desc(Vs + s * L::KV_BYTES, BK * ROW, 1024);
+
+        // S = Q K^T over DP / 16 steps of 16 columns
+        float sc[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const int atom = kk / 4, off = (kk % 4) * 32;
+          mma_ss(sc, qd + ((atom * BQ * ROW + off) >> 4), kd + ((atom * BK * ROW + off) >> 4),
+                 kk > 0);
+        }
+        wg_commit();
+        wg_wait_all();
+        reg_fence(sc);
+
+        // scale to log2 units and mask; sc[4 j + 2 r + e] is row r0 + 8 r,
+        // column 8 j + 2 quad + e
+        float mx_row[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float x = sc[4 * j + 2 * r + e] * sl2;
+              if (!whole) {
+                const int k = kpos[8 * j + e];
+                if (!(k >= 0 && k <= hi[r] && k > lo[r])) x = neg_inf();
+              }
+              sc[4 * j + 2 * r + e] = x;
+              mx_row[r] = fmaxf(mx_row[r], x);
+            }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx_row[r] = fmaxf(mx_row[r], __shfl_xor_sync(0xffffffffu, mx_row[r], 1));
+          mx_row[r] = fmaxf(mx_row[r], __shfl_xor_sync(0xffffffffu, mx_row[r], 2));
+          const float m_new = fmaxf(m[r], mx_row[r]);
+          alpha[r] = exp2f(m[r] - m_new);
+          m[r] = m_new;
+        }
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float pr = exp2f(sc[4 * j + 2 * r + e] - m[r]);
+              sc[4 * j + 2 * r + e] = pr;
+              sum[r] += pr;
+            }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+          for (int c = 0; c < ATOMS; ++c)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                o[32 * c + 4 * j + 2 * r] *= alpha[r];
+                o[32 * c + 4 * j + 2 * r + 1] *= alpha[r];
+              }
+        }
+
+        // P in bf16: the accumulator of columns 16 kk..16 kk + 15 is the
+        // A fragment of step kk
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+
+        // O += P V: V's rows are keys (K), its 128-byte rows hold 64 of D (N)
+        reg_fence(o);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_rs<DP>(o, pa[kk], vd + ((kk * 16 * ROW) >> 4));
+        wg_commit();
+        wg_wait_all();
+        reg_fence(o);
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    // out = O / l on rows < Sq and columns < D
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    // O / l in bf16 goes to this warpgroup's own rows of the Q tile (its S
+    // products are done; the other warpgroup reads only its own rows), in
+    // Q's swizzled layout, then out to device memory 16 bytes a thread,
+    // each row's D * 2 bytes contiguous
+    uint8_t* const Os = Qs + wg * 64 * ROW;  // atom c at Os + c * BQ * ROW
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = r0 % 64 + 8 * r;  // row within this warpgroup's 64
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < ATOMS; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(Os + c * BQ * ROW + rr * ROW +
+                                             ((j ^ (rr % 8)) * 16) + 4 * quad) =
+              __floats2bfloat162_rn(o[32 * c + 4 * j + 2 * r] * inv,
+                                    o[32 * c + 4 * j + 2 * r + 1] * inv);
+    }
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
+    const int chunks = p.D / 8;  // 16-byte chunks of a row
+    for (int i = tid % 128; i < 64 * chunks; i += 128) {
+      const int rr = i / chunks, k = i % chunks, row = q0 + wg * 64 + rr;
+      if (row < p.Sq)
+        *reinterpret_cast<uint4*>(ob + (long long)row * p.o_ss + 8 * k) =
+            *reinterpret_cast<const uint4*>(Os + (k / 8) * BQ * ROW + rr * ROW +
+                                            (((k % 8) ^ (rr % 8)) * 16));
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found at run time: no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+constexpr int ERR_NO_ENCODE = 100000;  // error codes of this file, beside cudaError_t's
+constexpr int ERR_ENCODE = 100001;
+
+// (B, H, S, D) bf16 with element strides (sb, sh, ss) and unit stride on
+// D as a 4-D map (D, S, H, B); boxes of 64 columns x `rows` rows
+int make_map(CUtensorMap* map, const void* base, int B, int H, int S, int D, long long sb,
+             long long sh, long long ss, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_NO_ENCODE;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
+template <int DP>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, const Params& p,
+           int B, int H, cudaStream_t st) {
+  const int smem = Layout<DP>::SMEM;
+  cudaError_t e =
+      cudaFuncSetAttribute(fa_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((p.Sq + BQ - 1) / BQ, H, B);
-  fa_kernel<T><<<grid, THREADS, smem, st>>>(p);
+  fa_wgmma<DP><<<grid, THREADS, smem, st>>>(qm, km, vm, p);
   return (int)cudaGetLastError();
 }
+
+}  // namespace tc
 
 }  // namespace
 
 extern "C" {
 
 const char* error_string(int code) {
+  if (code == tc::ERR_NO_ENCODE) return "cuTensorMapEncodeTiled not found in the driver";
+  if (code == tc::ERR_ENCODE) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v, o: (B, H, S, D) with element strides (sb, sh, ss) and unit
-// stride on D; q_pos (Sq,), k_pos (Sk,) contiguous int32; bf16 != 0 means
-// every tensor is bf16, else float32.
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                           const void* q_pos, const void* k_pos, int B, int H, int Sq,
-                           int Sk, int D, long long q_sb, long long q_sh, long long q_ss,
-                           long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-                           long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-                           long long o_ss, int causal, int window, double scale, int bf16,
-                           void* stream) {
+// float32.  q, k, v, o: (B, H, S, D) with element strides (sb, sh, ss) and
+// unit stride on D; q_pos (Sq,), k_pos (Sk,) contiguous int32.
+int flash_attention_f32_launch(const void* q, const void* k, const void* v, void* o,
+                               const void* q_pos, const void* k_pos, int B, int H, int Sq,
+                               int Sk, int D, long long q_sb, long long q_sh, long long q_ss,
+                               long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                               long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+                               long long o_ss, int causal, int window, double scale,
+                               void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 || D < 16 ||
-      D > 16 * MAX_DC || D % 16 != 0)
+      D > 16 * f32::MAX_DC || D % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, o, static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
-                 q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                 Sq, Sk, D, causal, window, (float)scale};
+  const f32::Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+                      static_cast<const float*>(v), static_cast<float*>(o),
+                      static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
+                      q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+                      Sq, Sk, D, causal, window, (float)scale};
+  const size_t smem = f32::smem_bytes(D);
+  cudaError_t e = cudaFuncSetAttribute(f32::fa_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + f32::BQ - 1) / f32::BQ, H, B);
+  f32::fa_kernel<<<grid, f32::THREADS, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// bfloat16.  q: (B, H, Sq, D); k, v: (Bk, Hk, Sk, D) with Bk in {1, B} and
+// Hk in {1, H} (a length-1 axis is shared by every b or h); element
+// strides (sb, sh, ss) each a multiple of 8 and 16-byte aligned bases; o
+// like q with any strides; q_pos (Sq,), k_pos (Sk,) contiguous int32.
+int flash_attention_bf16_launch(const void* q, const void* k, const void* v, void* o,
+                                const void* q_pos, const void* k_pos, int B, int H, int Bk,
+                                int Hk, int Sq, int Sk, int D, long long q_sb, long long q_sh,
+                                long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+                                long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+                                long long o_sh, long long o_ss, int causal, int window,
+                                double scale, void* stream) {
+  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 || D < 16 || D > 256 ||
+      D % 16 != 0 || (Bk != 1 && Bk != B) || (Hk != 1 && Hk != H))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  int err = tc::make_map(&qm, q, B, H, Sq, D, q_sb, q_sh, q_ss, tc::BQ);
+  if (!err) err = tc::make_map(&km, k, Bk, Hk, Sk, D, k_sb, k_sh, k_ss, tc::BK);
+  if (!err) err = tc::make_map(&vm, v, Bk, Hk, Sk, D, v_sb, v_sh, v_ss, tc::BK);
+  if (err) return err;
+  const tc::Params p{static_cast<__nv_bfloat16*>(o), static_cast<const int*>(q_pos),
+                     static_cast<const int*>(k_pos), o_sb, o_sh, o_ss, Sq, Sk, D, causal,
+                     window, Hk, Bk, (float)scale};
   const cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? launch<__nv_bfloat16>(p, B, H, st) : launch<float>(p, B, H, st);
+  if (D <= 64) return tc::launch<64>(qm, km, vm, p, B, H, st);
+  if (D <= 128) return tc::launch<128>(qm, km, vm, p, B, H, st);
+  return tc::launch<256>(qm, km, vm, p, B, H, st);
 }
 
 }  // extern "C"

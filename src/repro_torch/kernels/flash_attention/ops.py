@@ -1,14 +1,21 @@
-"""Wrapper of the flash-attention kernel.
+"""Wrapper of the flash-attention kernels.
 
-Dispatch is on the tensor's device: on a CUDA device the hand-written
+Dispatch is on the tensor's device: on a CUDA device a hand-written
 kernel (``flash_attention.cu``) runs and any build or launch error
 raises; on the CPU the plain version (``ref.py``) runs.  ``LAUNCHES``
 counts the kernel launches, one per wrapper call that reaches the card.
 
-The kernel takes q, k and v as they are: any strides on the batch, head
-and sequence axes (so a (B, S, H, D) projection viewed as (B, H, S, D),
-and one KV head expanded to H heads with stride 0, need no copy), unit
-stride on D.  The output has q's type and q's layout.
+On the card the input type picks the kernel, a fixed choice: bfloat16
+goes to the tensor-core kernel (``wgmma`` fed by TMA; P is rounded to
+bfloat16 before P·V, as the reference's model path does), float32 to the
+CUDA-core kernel, exact to float32 rounding.
+
+Both take q, k and v as they are: any strides on the batch, head and
+sequence axes (so a (B, S, H, D) projection viewed as (B, H, S, D), and
+one KV head expanded to H heads with stride 0, need no copy), unit
+stride on D.  The bfloat16 kernel reads through TMA, which wants
+16-byte aligned bases and strides; a tensor without them is copied
+first.  The output has q's type and q's layout.
 """
 from __future__ import annotations
 
@@ -22,8 +29,10 @@ from repro_torch.kernels.flash_attention import ref
 LAUNCHES = {"flash_attention": 0}
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-_SIGNATURES = {"flash_attention_launch": [_P] * 6 + [_I] * 5 + [_L] * 12
-               + [_I, _I, _D, _I, _P]}
+_SIGNATURES = {
+    "flash_attention_f32_launch": [_P] * 6 + [_I] * 5 + [_L] * 12 + [_I, _I, _D, _P],
+    "flash_attention_bf16_launch": [_P] * 6 + [_I] * 7 + [_L] * 12 + [_I, _I, _D, _P],
+}
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int = 0):
@@ -53,18 +62,53 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int =
     if tuple(q_pos.shape) != (Sq,) or tuple(k_pos.shape) != (Sk,):
         raise ValueError(f"flash_attention wants q_pos ({Sq},) and k_pos ({Sk},), got "
                          f"{tuple(q_pos.shape)}, {tuple(k_pos.shape)}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()
-    out = torch.empty_like(q)  # q's layout when q is dense, else contiguous
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     lib = _build.load("flash_attention", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            q_pos.data_ptr(), k_pos.data_ptr(), B, H, Sq, Sk, D, *strides,
-            int(causal), int(window), float(D) ** -0.5,
-            int(q.dtype == torch.bfloat16), _build.stream_of(q))
+    if q.dtype == torch.bfloat16:
+        q, _, _, *q_str = tma_view(q, shared=False)
+        (k, Bk, Hk, *k_str), (v, Bv, Hv, *v_str) = tma_view(k), tma_view(v)
+        if (Bv, Hv) != (Bk, Hk):  # one map shape serves both
+            (k, Bk, Hk, *k_str), (v, _, _, *v_str) = (
+                tma_view(t, shared=False) for t in (k, v))
+        out = torch.empty_like(q)  # q's layout when q is dense, else contiguous
+        with torch.cuda.device(q.device):
+            err = lib.flash_attention_bf16_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q_pos.data_ptr(), k_pos.data_ptr(), B, H, Bk, Hk, Sq, Sk, D,
+                *q_str, *k_str, *v_str, *out.stride()[:3],
+                int(causal), int(window), float(D) ** -0.5, _build.stream_of(q))
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+        out = torch.empty_like(q)
+        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        with torch.cuda.device(q.device):
+            err = lib.flash_attention_f32_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q_pos.data_ptr(), k_pos.data_ptr(), B, H, Sq, Sk, D, *strides,
+                int(causal), int(window), float(D) ** -0.5, _build.stream_of(q))
     _build.check(lib, err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def tma_view(t, shared: bool = True):
+    """``(t, B, H, sb, sh, ss)``: a bfloat16 (B, H, S, D) tensor as its TMA
+    map reads it.  With ``shared``, a stride-0 batch or head axis (an
+    expanded KV head) becomes length 1, shared by every b or h; a
+    length-1 axis takes the packed stride of the axes inside it.  TMA
+    wants a 16-byte aligned base, unit stride on D and the other strides
+    in multiples of 16 bytes: a tensor without them is made contiguous."""
+    for _ in range(2):
+        B, H, S, D = t.shape
+        sb, sh, ss, sd = t.stride()
+        if shared:
+            B, H = (1 if sb == 0 else B), (1 if sh == 0 else H)
+        ss = D if S == 1 else ss
+        sh = ss * S if H == 1 else sh
+        sb = sh * H if B == 1 else sb
+        if sd == 1 and t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0
+                                                      for s in (sb, sh, ss)):
+            return t, B, H, sb, sh, ss
+        t = t.clone(memory_format=torch.contiguous_format)
+    raise AssertionError(f"no TMA layout for a fresh {tuple(t.shape)} copy")

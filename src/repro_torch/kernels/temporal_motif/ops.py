@@ -15,6 +15,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.temporal_motif import ref
 
 LAUNCHES = {"motif": 0}
+MAX_N = 32 * 32 * 32  # the count pass holds a column's N / 32 words in registers
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"motif_launch": [_P, _P, _P, _I, _I, _P]}
@@ -22,7 +23,9 @@ _SIGNATURES = {"motif_launch": [_P, _P, _P, _I, _I, _P]}
 
 def temporal_motif(adj):
     """Per-node triangle counts (T, N) int32 at every timepoint from a
-    dense (T, N, N) symmetric 0/1 float32 adjacency (zero diagonal)."""
+    dense (T, N, N) float32 adjacency: ``out[t, j] = (sum over i with
+    A[i, j] != 0 of (A.A)[i, j]) / 2`` on A's 0/1 pattern, exact for any
+    pattern (diag(A^3) / 2 for a symmetric A with a zero diagonal)."""
     adj = torch.as_tensor(adj)
     if adj.device.type == "cpu":
         return ref.motif_ref(adj)
@@ -33,13 +36,17 @@ def temporal_motif(adj):
                          f"got {tuple(adj.shape)}")
     if adj.dtype != torch.float32:
         raise TypeError(f"temporal_motif wants float32, got {adj.dtype}")
-    adj = adj.contiguous()
     T, N, _ = adj.shape
-    total = torch.zeros((T, N), dtype=torch.int64, device=adj.device)
+    if N > MAX_N:
+        raise ValueError(f"temporal_motif takes N up to {MAX_N}, got {N}")
+    adj = adj.contiguous()
+    if adj.data_ptr() % 16:  # the pack pass reads aligned 16-byte words
+        adj = adj.clone()
+    words = torch.empty((2, T, N, (N + 31) // 32), dtype=torch.int32, device=adj.device)
     out = torch.empty((T, N), dtype=torch.int32, device=adj.device)
     lib = _build.load("temporal_motif", _SIGNATURES)
     with torch.cuda.device(adj.device):
-        err = lib.motif_launch(adj.data_ptr(), total.data_ptr(), out.data_ptr(),
+        err = lib.motif_launch(adj.data_ptr(), words.data_ptr(), out.data_ptr(),
                                T, N, _build.stream_of(adj))
     _build.check(lib, err, "temporal_motif.motif")
     LAUNCHES["motif"] += 1

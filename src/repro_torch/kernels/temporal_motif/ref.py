@@ -8,8 +8,9 @@ import torch
 
 
 def motif_ref(adj):
-    """adj: (T, N, N) symmetric 0/1 adjacency (zero diagonal).  Returns
-    per-node triangle counts (T, N) int32."""
+    """adj: (T, N, N) adjacency, any nonzero entry an edge (any pattern;
+    symmetric with a zero diagonal for triangles).  Returns the per-node
+    counts (T, N) int32."""
     a = (torch.as_tensor(adj) != 0).to(torch.float64)
     tri = (torch.bmm(a, a) * a).sum(dim=1) * 0.5
     return tri.to(torch.int32)

@@ -1,109 +1,138 @@
 // Per-node triangle participation at every timepoint of a dense adjacency
 // stack: out[t][j] = (sum_i (A_t A_t)[i][j] * A_t[i][j]) / 2, i.e. the
 // column sums of (A.A)oA halved, with A a 0/1 matrix (any nonzero entry is
-// an edge).  For a symmetric A with a zero diagonal this is diag(A^3)/2.
+// an edge).  For a symmetric A with a zero diagonal this is diag(A^3)/2;
+// the kernel is exact for any pattern (asymmetric, a set diagonal).
 //
 // Replaces the Pallas TPU kernel _motif_kernel / motif_pallas in
 // src/repro/kernels/temporal_motif/temporal_motif.py.
 //
-// Work: the function needs (A.A)[i][j] only where A[i][j] != 0, 2*N
-// operations for each of the nnz edges, against T*N^2 floats read once; on
-// sparse graphs the bytes bound it.  This kernel does the dense 2*T*N^3
-// multiply-adds all the same (sparse work is a later step).
-// Design: a tiled shared-memory product per t; each block
-// owns a 64x64 tile of A.A, accumulated in float32 registers (4x4 per
-// thread, 16-deep k tiles).  Every entry of A.A is an integer <= N, exact in
-// float32 for N < 2^24.  The epilogue multiplies each entry by A[i][j] and
-// reduces the tile's columns in int64, then adds them to a per-(t, j) int64
-// total with one atomic per column; A.A never reaches device memory.  Integer
-// atomics are exact, so the result does not depend on block order.  A second
-// small kernel halves the totals into the int32 output.  Any N is taken: the
-// edge tiles load zeros past N.
+// Work: the function needs (A.A)[i][j] only where A[i][j] != 0, and over
+// 0/1 entries that is popc(row_i & col_j) of the bit-packed row i and
+// column j: nnz * W word ANDs (W = ceil(N / 32)), against T*N^2 floats
+// read once.  The bytes bound it; the dense product the Pallas kernel runs
+// (2*T*N^3) would discard 98% of its products at 2% density.
+// Design: two passes, no atomics.
+//  1. pack: one block per (t, 32 rows, 256 columns).  The block reads the
+//     tile's rows with aligned 16-byte loads (offsets into the whole stack,
+//     so any N works: a float4 may straddle two rows, and only its
+//     elements of the tile are kept), as 0/1 bytes in shared memory.  Warp w
+//     takes the tile's columns 32 w..32 w + 31: a ballot per row gives the
+//     row word R[t][i][w], each lane's own 32 flags the column word
+//     C[t][w][j] (stored word-major, so a warp writes 32 consecutive j).
+//     Row words go out through shared memory, 8 consecutive words a row.
+//     Tail bits past N are zero.  R and C (uint32, T*N*W each: 16.8 MB
+//     together at T=4 N=4096) stay in L2 for the second pass.
+//  2. count: one warp per (t, j), column j's W words held in registers
+//     (W <= 32 * WPL).  For each set bit i of column j, the lanes split the
+//     W words of popc(R[t][i][w] & C[t][w][j]); edges go two at a time so
+//     their row loads overlap.  One warp sum at the end, halved into the
+//     int32 output.  Integer sums: exact, and the same bits on every run.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+constexpr int WARPS = 8;          // warps of a block
+constexpr int PR = 32, PC = 256;  // the pack pass's tile: rows x columns
+constexpr int SPAN = PC / 4 + 1;  // aligned float4s that cover any PC columns of a row
+constexpr int MAX_N = 32 * 32 * 32;  // W <= 1024: the count pass's widest column
 
-__global__ void __launch_bounds__(THREADS)
-motif_kernel(const float* __restrict__ adj,
-             unsigned long long* __restrict__ total, int N) {
-  const int t = blockIdx.z;
-  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
-  const float* A = adj + (size_t)t * N * N;
-  __shared__ float As[BK][BM + 1];  // As[k][i] = A[i0 + i][k0 + k]
-  __shared__ __align__(16) float Bs[BK][BN];  // Bs[k][j] = A[k0 + k][j0 + j]
-  __shared__ unsigned long long red[BM / TM][BN];
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-  float c[TM][TN];
+__global__ void __launch_bounds__(32 * WARPS)
+pack_kernel(const float* __restrict__ adj, uint32_t* __restrict__ rows,
+            uint32_t* __restrict__ cols, int N, int W) {
+  __shared__ __align__(16) uint8_t tile[PR][PC];
+  __shared__ uint32_t row_words[PR][PC / 32];
+  const int t = blockIdx.z, i0 = PR * blockIdx.y, j0 = PC * blockIdx.x;
+  for (int f = threadIdx.x; f < PR * PC / 16; f += 32 * WARPS)
+    reinterpret_cast<uint4*>(&tile[0][0])[f] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  const int ncol = min(PC, N - j0);
+  for (int f = threadIdx.x; f < PR * SPAN; f += 32 * WARPS) {
+    const int r = f / SPAN, k = f % SPAN;
+    if (i0 + r >= N) continue;
+    const long long start = ((long long)t * N + i0 + r) * N + j0;
+    const long long a = (start & ~3ll) + 4ll * k;  // first element of this float4
+    if (a >= start + ncol) continue;
+    const float4 v = *reinterpret_cast<const float4*>(adj + a);
+    const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) c[r][q] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK;  // 16 threads share one row
-      const int gi = i0 + r, gk = k0 + kk;
-      As[kk][r] =
-          (gi < N && gk < N && A[(size_t)gi * N + gk] != 0.f) ? 1.f : 0.f;
+    for (int c = 0; c < 4; ++c) {
+      const long long col = a + c - start;
+      if (col >= 0 && col < ncol) tile[r][col] = e[c] != 0.f;
     }
-    for (int e = threadIdx.x; e < BK * BN; e += THREADS) {
-      const int kk = e / BN, q = e % BN;
-      const int gk = k0 + kk, gj = j0 + q;
-      Bs[kk][q] =
-          (gk < N && gj < N && A[(size_t)gk * N + gj] != 0.f) ? 1.f : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) a[r] = As[kk][ty * TM + r];
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        c[r][0] += a[r] * b.x;
-        c[r][1] += a[r] * b.y;
-        c[r][2] += a[r] * b.z;
-        c[r][3] += a[r] * b.w;
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: (A.A)[i][j] * A[i][j], summed over this thread's rows
-#pragma unroll
-  for (int q = 0; q < TN; ++q) {
-    const int gj = j0 + tx * TN + q;
-    unsigned long long s = 0;
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int gi = i0 + ty * TM + r;
-      if (gi < N && gj < N && A[(size_t)gi * N + gj] != 0.f)
-        s += (unsigned long long)c[r][q];
-    }
-    red[ty][tx * TN + q] = s;
   }
   __syncthreads();
-  if (threadIdx.x < BN) {
-    const int gj = j0 + threadIdx.x;
-    if (gj < N) {
-      unsigned long long s = 0;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  uint32_t row = 0, col = 0;
 #pragma unroll
-      for (int y = 0; y < BM / TM; ++y) s += red[y][threadIdx.x];
-      if (s) atomicAdd(&total[(size_t)t * N + gj], s);
-    }
+  for (int b = 0; b < 32; ++b) {
+    const uint32_t f = tile[b][32 * w + lane];
+    const uint32_t bits = __ballot_sync(0xffffffffu, f);  // row i0 + b
+    if (lane == b) row = bits;
+    col |= f << b;  // column j0 + 32 w + lane, rows i0..i0 + 31
   }
+  row_words[lane][w] = row;
+  const int j = j0 + 32 * w + lane;
+  if (j < N) cols[((size_t)t * W + blockIdx.y) * N + j] = col;
+  __syncthreads();
+  const int r = threadIdx.x / WARPS, ww = threadIdx.x % WARPS, wj = j0 / 32 + ww;
+  if (i0 + r < N && wj < W) rows[((size_t)t * N + i0 + r) * W + wj] = row_words[r][ww];
 }
 
-__global__ void halve_kernel(const unsigned long long* __restrict__ total,
-                             int32_t* __restrict__ out, long long n) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < n) out[i] = (int32_t)(total[i] / 2);
+template <int WPL>
+__global__ void __launch_bounds__(32 * WARPS)
+count_kernel(const uint32_t* __restrict__ rows, const uint32_t* __restrict__ cols,
+             int32_t* __restrict__ out, int T, int N, int W) {
+  const long long task = (long long)blockIdx.x * WARPS + threadIdx.x / 32;  // t * N + j
+  if (task >= (long long)T * N) return;
+  const int lane = threadIdx.x % 32;
+  const int t = (int)(task / N), j = (int)(task % N);
+  const uint32_t* R = rows + (size_t)t * N * W;
+  uint32_t cw[WPL];  // word lane + 32 u of column j
+#pragma unroll
+  for (int u = 0; u < WPL; ++u)
+    cw[u] = lane + 32 * u < W ? cols[((size_t)t * W + lane + 32 * u) * N + j] : 0u;
+  unsigned long long total = 0;
+#pragma unroll
+  for (int u = 0; u < WPL; ++u) {
+    for (int src = 0; src < 32 && 32 * u + src < W; ++src) {
+      uint32_t word = __shfl_sync(0xffffffffu, cw[u], src);  // rows 32 (32 u + src)..
+      const int base = 32 * (32 * u + src);
+      while (word) {
+        const uint32_t* R1 = R + (size_t)(base + __ffs(word) - 1) * W;
+        word &= word - 1;
+        const uint32_t* R2 = R1;  // a second edge, or R1 again with its words masked off
+        uint32_t second = 0;
+        if (word) {
+          R2 = R + (size_t)(base + __ffs(word) - 1) * W;
+          word &= word - 1;
+          second = 0xffffffffu;
+        }
+        uint32_t c = 0;
+#pragma unroll
+        for (int v = 0; v < WPL; ++v) {
+          const int w = lane + 32 * v;
+          if (w < W) c += __popc(R1[w] & cw[v]) + __popc(R2[w] & cw[v] & second);
+        }
+        total += c;
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(0xffffffffu, total, o);
+  if (lane == 0) out[task] = (int32_t)(total / 2);
 }
+
+template <int WPL>
+void count(const uint32_t* rows, const uint32_t* cols, int32_t* out, int T, int N, int W,
+           cudaStream_t st) {
+  if (W > 32 * WPL) return count<2 * WPL>(rows, cols, out, T, N, W, st);
+  const unsigned blocks = (unsigned)(((long long)T * N + WARPS - 1) / WARPS);
+  count_kernel<WPL><<<blocks, 32 * WARPS, 0, st>>>(rows, cols, out, T, N, W);
+}
+template <>
+void count<64>(const uint32_t*, const uint32_t*, int32_t*, int, int, int, cudaStream_t) {}
 
 }  // namespace
 
@@ -113,21 +142,21 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// adj: (T, N, N) float32; total: (T, N) int64 zeroed by the caller
-// (scratch); out: (T, N) int32.
-int motif_launch(const void* adj, void* total, void* out, int T, int N,
-                 void* stream) {
-  if (T < 1 || N < 1 || N >= (1 << 24) || T > 65535)
+// adj: (T, N, N) float32, 16-byte aligned; scratch: 2 * T * N * ceil(N / 32)
+// uint32 (the row words, then the column words; no initial value needed);
+// out: (T, N) int32.
+int motif_launch(const void* adj, void* scratch, void* out, int T, int N, void* stream) {
+  if (T < 1 || N < 1 || N > MAX_N || T > 65535 || (uintptr_t)adj % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((N + BN - 1) / BN, (N + BM - 1) / BM, T);
-  motif_kernel<<<grid, THREADS, 0, st>>>(
-      (const float*)adj, (unsigned long long*)total, N);
-  cudaError_t e = cudaGetLastError();
+  const int W = (N + 31) / 32;
+  uint32_t* rows = static_cast<uint32_t*>(scratch);
+  uint32_t* cols = rows + (size_t)T * N * W;
+  const dim3 grid((N + PC - 1) / PC, (N + PR - 1) / PR, T);
+  pack_kernel<<<grid, 32 * WARPS, 0, st>>>(static_cast<const float*>(adj), rows, cols, N, W);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long n = (long long)T * N;
-  halve_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      (const unsigned long long*)total, (int32_t*)out, n);
+  count<1>(rows, cols, static_cast<int32_t*>(out), T, N, W, st);
   return (int)cudaGetLastError();
 }
 

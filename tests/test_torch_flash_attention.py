@@ -13,7 +13,7 @@ import torch
 
 from repro.kernels.flash_attention import ops as ref_ops
 from repro.models import attention as ref_attn
-from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.models import attention
 
 
@@ -96,3 +96,160 @@ def test_expand_kv_groups_heads_consecutively(kv):
     np.testing.assert_array_equal(ek.numpy(), want)
     if kv == 1:
         assert ek.stride(2) == 0 and ek.data_ptr() == k.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 tensor-core kernel's arithmetic, mirrored in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _hidden(kmin, kmax, qmin, qmax, causal, window):
+    """The kernels' tile test: no query of [qmin, qmax] may see a key of
+    the tile (flash_attention.cu, ``tile_hidden``)."""
+    return (kmin > kmax or qmin > qmax or (causal and kmin > qmax)
+            or (window > 0 and kmax <= qmin - window))
+
+
+def _wgmma_mirror(q, k, v, q_pos, k_pos, *, causal, window, skip=True):
+    """What ``fa_wgmma`` computes: blocks of 128 queries, two warpgroups of
+    64 rows each, KV tiles of 64 keys.  A tile hidden from the block is
+    never loaded, one hidden from a warpgroup is skipped there, and a tile
+    every row of a warpgroup sees whole runs without the per-element mask
+    (``skip=False`` masks every tile instead).  Online softmax in float32
+    (masked scores -inf, m from the reference's NEG); the row sums add the
+    float32 p, and P is rounded to bfloat16 before P·V.  Output in q's
+    type."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()  # bf16 values, exact in float32
+    q_pos, k_pos = q_pos.to(torch.int64), k_pos.to(torch.int64)
+    out = torch.zeros(B, H, Sq, D)
+    for q0 in range(0, Sq, 128):
+        bq = q_pos[q0:q0 + 128]
+        for w0 in range(q0, min(q0 + 128, Sq), 64):
+            rows = slice(w0, min(w0 + 64, Sq))
+            qp = q_pos[rows]
+            n = qp.shape[0]
+            m = torch.full((B, H, n), ref.NEG)
+            l = torch.zeros(B, H, n)
+            o = torch.zeros(B, H, n, D)
+            for k0 in range(0, Sk, 64):
+                kp = k_pos[k0:k0 + 64]
+                ok = kp >= 0
+                kmin = int(kp[ok].min()) if ok.any() else 2**31 - 1
+                kmax = int(kp[ok].max()) if ok.any() else -2**31
+                if skip and (_hidden(kmin, kmax, int(bq.min()), int(bq.max()), causal, window)
+                             or _hidden(kmin, kmax, int(qp.min()), int(qp.max()), causal,
+                                        window)):
+                    continue
+                whole = (skip and bool(ok.all()) and kp.shape[0] == 64
+                         and (not causal or kmax <= int(qp.min()))
+                         and (window <= 0 or kmin > int(qp.max()) - window))
+                s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, rows], kf[:, :, k0:k0 + 64]) \
+                    * D ** -0.5
+                if not whole:
+                    mask = ref.position_mask(qp, kp, causal=causal, window=window)
+                    s = torch.where(mask, s, -torch.inf)
+                m2 = torch.maximum(m, s.amax(dim=-1))
+                p = torch.exp(s - m2[..., None])
+                alpha = torch.exp(m - m2)
+                l = l * alpha + p.sum(dim=-1)
+                o = o * alpha[..., None] + torch.einsum(
+                    "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vf[:, :, k0:k0 + 64])
+                m = m2
+            out[:, :, rows] = o / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+_GRID = [  # the reference's kernel-test grid, plus blocks of 128 and ring holes
+    (1, 2, 64, 64, 32, True, 0, None),
+    (2, 1, 128, 128, 16, True, 0, None),
+    (1, 2, 96, 160, 32, True, 48, None),    # sliding window, ragged tiles
+    (1, 1, 64, 256, 64, False, 0, None),    # cross attention
+    (2, 2, 1, 96, 32, True, 0, None),       # a single query
+    (1, 1, 300, 300, 64, True, 100, None),  # three blocks, window across tiles
+    (1, 1, 2, 64, 16, True, 0, 40),         # ring holes; the second query sees nothing
+]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,window,holes", _GRID)
+def test_wgmma_numerics_match_reference(B, H, Sq, Sk, D, causal, window, holes):
+    """The bf16 kernel's arithmetic against the reference's Pallas kernel
+    (interpret mode) and the plain version, within the bf16 kernel-test
+    tolerance 2e-2.  Why it holds: the products of bf16 inputs are exact in
+    float32 and only their order of summation differs; rounding P to bf16
+    moves each weight by at most 2^-9 of itself, so the output by at most
+    2^-9 * max|v| (~0.004 at these |v| <= 2); the output's own bf16
+    rounding adds 2^-9 of its size.  Both sit well inside 2e-2 + 2e-2|out|.
+    The tile skip and the unmasked whole tiles are exact no-ops: the same
+    arithmetic with every tile masked gives the same output to float32
+    rounding."""
+    q, k, v = _qkv(B * 11 + Sk + D, B, H, Sq, Sk, D)
+    q_pos = np.arange(Sk - Sq, Sk, dtype=np.int32) if causal else np.arange(Sq, dtype=np.int32)
+    k_pos = np.arange(Sk, dtype=np.int32)
+    if holes:
+        k_pos = np.where(k_pos < holes, k_pos, -1).astype(np.int32)
+        q_pos = np.asarray([holes - 1, -5], np.int32)
+    tq, tk, tv = (_torch(a, torch.bfloat16) for a in (q, k, v))
+    tqp, tkp = torch.from_numpy(q_pos), torch.from_numpy(k_pos)
+    got = _wgmma_mirror(tq, tk, tv, tqp, tkp, causal=causal, window=window)
+    masked = _wgmma_mirror(tq, tk, tv, tqp, tkp, causal=causal, window=window, skip=False)
+    np.testing.assert_allclose(got.float().numpy(), masked.float().numpy(), atol=1e-6, rtol=0)
+    plain = ref.attention_ref(tq, tk, tv, tqp, tkp, causal=causal, window=window)
+    kernel = ref_ops.flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                     jnp.asarray(q_pos), jnp.asarray(k_pos), causal=causal,
+                                     window=window, blk_q=32, blk_k=32)
+    for want in (plain.numpy(), np.asarray(kernel, np.float32)):
+        np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2, rtol=2e-2)
+    if holes:
+        assert not got[:, :, 1].any()
+
+
+def test_wgmma_tile_rules_on_scattered_positions():
+    """Positions out of order, holes inside tiles and a whole tile of
+    holes: the skip and whole-tile rules still change nothing (float32
+    rounding), and the result stays within the bf16 tolerance of the
+    plain version."""
+    rng = np.random.RandomState(3)
+    q, k, v = _qkv(5, 1, 2, 200, 320, 32)
+    k_pos = rng.permutation(320).astype(np.int32)
+    k_pos[rng.rand(320) < 0.1] = -1
+    k_pos[128:192] = -1
+    q_pos = np.sort(rng.choice(400, 200, replace=False)).astype(np.int32)
+    args = [_torch(a, torch.bfloat16) for a in (q, k, v)] + [
+        torch.from_numpy(q_pos), torch.from_numpy(k_pos)]
+    for causal, window in ((True, 0), (True, 64), (False, 96)):
+        got = _wgmma_mirror(*args, causal=causal, window=window)
+        masked = _wgmma_mirror(*args, causal=causal, window=window, skip=False)
+        np.testing.assert_allclose(got.float().numpy(), masked.float().numpy(), atol=1e-6)
+        plain = ref.attention_ref(*args, causal=causal, window=window)
+        np.testing.assert_allclose(got.float().numpy(), plain.numpy(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("layout", ["bshd", "mqa", "mqa_unshared", "unaligned", "one_query"])
+def test_tma_view_layouts(layout):
+    """The bf16 kernel's TMA maps: a (B, S, H, D) projection viewed as
+    (B, H, S, D) and MQA's stride-0 head are read in place (the head axis
+    collapsed to length 1); a stride-0 axis that may not be shared, or an
+    unaligned base, is copied to a contiguous tensor."""
+    B, S, H, D = 2, 5, 4, 32
+    base = torch.zeros(2000, dtype=torch.bfloat16)
+    if layout == "bshd":
+        t, shared = base[:B * S * H * D].view(B, S, H, D).transpose(1, 2), True
+        want = (B, H, S * H * D, D, H * D)
+    elif layout in ("mqa", "mqa_unshared"):
+        one = base[:B * S * D].view(B, S, 1, D)
+        t, shared = one.expand(B, S, H, D).transpose(1, 2), layout == "mqa"
+        want = (B, 1, S * D, S * D, D) if shared else (B, H, H * S * D, S * D, D)
+    elif layout == "unaligned":
+        t, shared = base[1:1 + B * H * S * D].view(B, H, S, D), True
+        want = (B, H, H * S * D, S * D, D)
+    else:
+        t, shared = base[:B * H * D].view(B, H, 1, D), True
+        want = (B, H, H * D, D, D)
+    got, *dims = ops.tma_view(t, shared=shared)
+    assert tuple(dims) == want
+    assert torch.equal(got, t)
+    in_place = layout in ("bshd", "mqa", "one_query")
+    assert (got.data_ptr() == t.data_ptr()) == in_place
+    assert got.data_ptr() % 16 == 0
