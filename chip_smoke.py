@@ -32,15 +32,25 @@ one JSON line; any failure exits non-zero:
    float32 and 2e-2 in bf16, RG-LRU within 2e-5, the reference's kernel
    test tolerances), on the inputs each step of the main paths gave it,
    at headline shapes (motif also on an asymmetric stack with half its
-   diagonal set) and on the reference's kernel-test grid, plus a bf16
+   diagonal set; ``overlay_batch`` also on a wide snapshot group's mask,
+   2 shared layers and one layer per timepoint; RG-LRU also on one
+   4097-token prompt, a ragged last chunk) and on the reference's
+   kernel-test grid, plus a bf16
    case at each compiled head dim and the attention mask check: q = 0
    and v holding the bits of each key's position, so one key more or
    less in a window moves an output by more than its 2^-8 bound (with
-   and without holes in k_pos); device times from
+   and without holes in k_pos); on every case the redesigned kernels are
+   also held against the plain emulation of their decomposition
+   (``overlay_batch``'s pre-pass layer lists bit for bit against
+   ``layer_lists_ref``, RG-LRU within 2e-5 of ``rglru_chunked_ref``);
+   device times from
    CUDA events, beside the plain version's, one library call's where
    there is one, and the bound: the larger of the bytes the function
    must move over the memory rate and the operations these inputs need
    over the peak rate for their type, both counted from the data.
+   Then ``overlay_batch`` bit for bit at the edges the cases above do not
+   reach: other K (0, 1, 3, 20, 1000), one layer, one timepoint, and more
+   than 2^31 attrs (64-bit indices).
 
 Phase 1 also prints ``nvidia-smi``'s own line.  The line before the
 last is ``{"kernels": [...]}``, the last
@@ -653,9 +663,6 @@ def kernel_case(name, args, kw, tag, tol=None):
         T, N, _ = args[0].shape
         (ops, nbytes), peak = pagerank_work(*args), FP32_OPS_PER_S
         shape = dict(T=T, N=N, nnz=int((args[0] != 0).sum()), iters=20)
-
-        def library():  # the same loop of PyTorch calls, cuBLAS bmm for the product
-            return pr_ref.pagerank_ref(*args)
     elif name == "temporal_cc.cc":
         kern, plain = cc_ops.temporal_cc, cc_ref.cc_ref
         T, N, _ = args[0].shape
@@ -683,7 +690,7 @@ def kernel_case(name, args, kw, tag, tol=None):
         kern, plain, tol = rg_ops.rglru, rg_ref.rglru_ref, RGLRU_TOL
         B, S, W = args[0].shape
         ops, nbytes, peak = 3 * args[0].numel(), 3 * args[0].numel() * 4, FP32_OPS_PER_S
-        shape = dict(B=B, S=S, W=W)
+        shape = dict(B=B, S=S, W=W, chunk=rg_ops.CHUNK)
 
     got = kern(*args, **kw)
     torch.cuda.synchronize()
@@ -703,15 +710,42 @@ def kernel_case(name, args, kw, tag, tol=None):
             fail(f"{name} ({tag}) outside {tol} of its plain version: max err {err}")
         if not torch.equal(kern(*args, **kw), g):
             fail(f"{name} ({tag}): two runs differ")
+    extra = decomposition_check(name, tag, args, got)
     ops_ms, bytes_ms = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms > bytes_ms else "bytes"
     row = dict(shape=shape, max_abs_err=err, ms=device_ms(lambda: kern(*args, **kw)),
                plain_ms=device_ms(lambda: plain(*args, **kw)), bound_ms=bound_ms,
                bound_by=bound_by,
-               library_ms=None if library is None else device_ms(library))
+               library_ms=None if library is None else device_ms(library), **extra)
     emit(phase="kernel_vs_plain", kernel=name, inputs=tag, **row)
     return row
+
+
+def decomposition_check(name, tag, args, got) -> dict:
+    """The redesigned kernels against the plain emulation of their own
+    decomposition: ``overlay_batch``'s pre-pass lists bit for bit against
+    ``layer_lists_ref``, ``rglru_scan`` within RGLRU_TOL of
+    ``rglru_chunked_ref`` at the kernel's chunk."""
+    if name == "delta_overlay.overlay_batch":
+        from repro_torch.kernels.delta_overlay import ops as ov_ops
+        from repro_torch.kernels.delta_overlay import ref as ov_ref
+
+        lists, counts = ov_ops.layer_lists(args[3])
+        want_lists, want_counts = ov_ref.layer_lists_ref(args[3])
+        if not (torch.equal(lists, want_lists) and torch.equal(counts, want_counts)):
+            fail(f"{name} ({tag}): pre-pass layer lists != layer_lists_ref")
+        return dict(layer_lists="equal", listed_layers=int(counts.sum()))
+    if name == "rglru_scan":
+        from repro_torch.kernels.rglru_scan import ops as rg_ops
+        from repro_torch.kernels.rglru_scan import ref as rg_ref
+
+        want = rg_ref.rglru_chunked_ref(*args, rg_ops.CHUNK)
+        err = float((got[0] - want).abs().max())
+        if not torch.allclose(got[0], want, **RGLRU_TOL):
+            fail(f"{name} ({tag}) outside {RGLRU_TOL} of rglru_chunked_ref: {err}")
+        return dict(chunked_ref_max_abs_err=err)
+    return {}
 
 
 def headline_inputs(dev):
@@ -726,6 +760,14 @@ def headline_inputs(dev):
     def tmask(h, T):
         m = (torch.rand(h, T, generator=g) < 0.6).to(torch.int8)
         m[0] = 1
+        return m.to(dev)
+
+    def wide_tmask(T, shared=2):
+        """A snapshot group's structure: the shared path layers feed every
+        timepoint, then one eventlist layer feeds each timepoint."""
+        m = torch.zeros(shared + T, T, dtype=torch.int8)
+        m[:shared] = 1
+        m[shared + torch.arange(T), torch.arange(T)] = 1
         return m.to(dev)
 
     def adjacency(T, N, p=0.02):
@@ -796,7 +838,7 @@ def headline_inputs(dev):
           attention(1, 2, 300, 300, 256, True, 128, bf16),
           attention(1, 2, 200, 200, 64, True, 0, bf16), mask_check(False), mask_check(True),
           rglru(1, 128, 128), rglru(2, 64, 256), rglru(1, 96, 130), rglru(2, 33, 64),
-          rglru(1, 40, 32)]
+          rglru(1, 40, 32), rglru(1, 4097, 4096)]
     def asymmetric(T, N, p=0.02):
         """A 0/1 stack with no symmetry and half the diagonal set."""
         a = (torch.rand(T, N, N, generator=g) < p).float()
@@ -812,11 +854,53 @@ def headline_inputs(dev):
          stacks(8, 16, 65536, 4) + [tmask(8, 32)]),
         ("delta_overlay.overlay_batch", "h=8 P=16 S=65537 K=4 T=32",
          stacks(8, 16, 65537, 4) + [tmask(8, 32)]),
+        ("delta_overlay.overlay_batch",
+         "h=34 P=16 S=65537 K=4 T=32, wide-group mask (2 shared + 1 per t)",
+         stacks(34, 16, 65537, 4) + [wide_tmask(32)]),
         ("temporal_motif.motif", "T=4 N=4096", adjacency(4, 4096)),
         ("temporal_motif.motif", "T=4 N=4000", adjacency(4, 4000)),
         ("temporal_motif.motif", "T=2 N=1000 asymmetric, half the diagonal set",
          asymmetric(2, 1000)),
     ]]
+
+
+def overlay_batch_edges(dev) -> None:
+    """``overlay_batch`` and its pre-pass, bit for bit against their plain
+    versions, where the main path and the headline cases (all K = 4, all
+    indices in 31 bits) do not go: the generic-K kernel (K = 0, 1, 3, 20,
+    1000), one layer, one timepoint, a column no layer feeds and a layer no
+    timepoint uses, T past one tile; and the 64-bit index kernel, with
+    h * P * S * K = 2^31 + 8,192 attrs (8.6 GB)."""
+    from repro_torch.kernels.delta_overlay import ops as ov_ops
+    from repro_torch.kernels.delta_overlay import ref as ov_ref
+
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def case(h, P, S, K, T, density=0.4):
+        valid = torch.rand(h, P, S, generator=g, device=dev) < density
+        present = (torch.rand(h, P, S, generator=g, device=dev) < 0.7).to(torch.int8)
+        attrs = torch.randint(-1, 5, (h, P, S, K), generator=g, device=dev,
+                              dtype=torch.int32)
+        tmask = (torch.rand(h, T, generator=g, device=dev) < 0.6).to(torch.int8)
+        tmask[:, 0] = 0
+        if h > 2:
+            tmask[1] = 0
+        got = ov_ops.overlay_batch(valid, present, attrs, tmask)
+        if max_err(got, ov_ref.overlay_batch_ref(valid, present, attrs, tmask)) != 0:
+            fail(f"overlay_batch h={h} P={P} S={S} K={K} T={T} != its plain version")
+        lists = ov_ops.layer_lists(tmask)
+        if not all(torch.equal(a, b) for a, b in zip(lists, ov_ref.layer_lists_ref(tmask))):
+            fail(f"overlay_batch h={h} T={T}: pre-pass lists != layer_lists_ref")
+        return dict(h=h, P=P, S=S, K=K, T=T)
+
+    t0 = time.perf_counter()
+    shapes = [case(*c) for c in ((1, 1, 1, 4, 1), (3, 2, 33, 4, 1), (6, 2, 777, 3, 5),
+                                 (4, 1, 300, 20, 40), (3, 1, 100, 0, 3), (3, 1, 70, 1000, 40),
+                                 (9, 1, 5000, 1, 70), (5, 3, 1000, 4, 33))]
+    shapes.append(case(128, 16, 262145, 4, 3, density=0.05))
+    torch.cuda.empty_cache()
+    emit(phase="kernel_edges", kernel="delta_overlay.overlay_batch", cases=shapes,
+         max_abs_err=0, seconds=time.perf_counter() - t0)
 
 
 SOURCES = {
@@ -924,6 +1008,7 @@ def main() -> int:
                          bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                          library_ms=row["library_ms"], shape=row["shape"],
                          headline=headline))
+    overlay_batch_edges(dev)
     emit(phase="done", seconds=time.perf_counter() - start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

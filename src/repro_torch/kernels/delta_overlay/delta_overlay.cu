@@ -15,16 +15,45 @@
 // the neutral accumulator (valid 0, present 0, attrs -1) and folds the layers
 // i with tmask[i][t] != 0, the clear included from layer 0 on.
 //
-// Design: one thread per slot, consecutive threads on consecutive slots
-// (coalesced int8 loads), any h, T and K, no padding of S (the last block
-// masks the ragged edge), no shared memory.  Valid and present fold first;
-// then each attribute folds on its own, repeating the present fold, so the
-// accumulator is two scalars whatever K is.  The repeated reads of a slot's
-// layers hit the cache; device memory sees each layer about once.  A layer
-// whose valid byte is 0 cannot change the attrs, so its attrs are not read;
-// the batch kernel tests tmask (the same for the whole warp) before it
-// reads a layer, so a layer outside timepoint t costs no load of the slot.
-// Outputs are written once each, directly.
+// Bound: both folds move bytes (a compare and a select per layer and
+// attribute); the batch fold's outputs, T * (2 + 4K) bytes a slot, are
+// most of them.
+//
+// overlay_kernel: one thread per slot, consecutive threads on consecutive
+// slots (coalesced int8 loads), any h and K, no padding of S (the last
+// block masks the ragged edge), no shared memory.  Valid and present fold
+// first; then each attribute folds on its own, repeating the present fold,
+// so the accumulator is two scalars whatever K is.  The repeated reads of
+// a slot's layers hit the cache; device memory sees each layer about once.
+// A layer whose valid byte is 0 cannot change the attrs, so its attrs are
+// not read.
+//
+// overlay_batch: a walk of all h layers for each timepoint, repeated for
+// each attribute, is O(T * h * (K + 1)) steps a slot, where a timepoint
+// of a wide group (the shared path plus its own eventlist layer) needs 3
+// of 322 layers; and a thread per slot writing its T * K attrs stores at a
+// stride of T * K * 4 bytes across the warp.  So:
+//  - layer_lists_kernel, a pre-pass, writes for each t the ordered list of
+//    the layers that feed it and their count (one warp per t, ballot and
+//    popc keep index order; no host sync);
+//  - overlay_batch_kernel folds a tile of 32 slots x TT timepoints (x all
+//    K attrs): a warp takes 32 consecutive slots at one t, so it walks one
+//    list with no divergence and its layer loads coalesce along slots;
+//    a thread folds all K attrs in one walk of its list with K
+//    accumulators in registers (K = 4 compiled in, a loop of 8-wide passes
+//    otherwise).  Only the listed layers are read, and a layer whose valid
+//    byte is 0 is skipped: after every step, present == 0 implies attrs
+//    == -1, so a step that changes nothing may be left out, the clear
+//    included.  Work per slot is O(sum_t |list_t| * (K + 1)).
+//  - the tile's outputs are staged in shared memory (attrs at an odd row
+//    stride, no bank conflicts) and written back as each slot's contiguous run of
+//    TT timepoints x K attrs, a warp per run.
+// The write-back alone runs at the rate of a plain fill of the outputs;
+// the fold's steps are bound by instruction throughput (measured on the card:
+// a fold with its loads replaced by arithmetic costs nearly as much), so
+// a step is kept short: 32-bit indices where they fit, the step loop
+// unrolled by 4, 32 registers.  Designs that did more a step lost to the
+// occupancy they cost (PERF.md).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -65,40 +94,148 @@ __global__ void overlay_kernel(const int8_t* __restrict__ valid,
   }
 }
 
-__global__ void overlay_batch_kernel(const int8_t* __restrict__ valid,
-                                     const int8_t* __restrict__ present,
-                                     const int32_t* __restrict__ attrs,
-                                     const int32_t* __restrict__ tmask,
-                                     int8_t* __restrict__ o_valid,
-                                     int8_t* __restrict__ o_present,
-                                     int32_t* __restrict__ o_attrs, int h,
-                                     long long n, int K, int T) {
-  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (s >= n) return;
-  for (int t = 0; t < T; ++t) {
+// One warp per timepoint t: lists[t, :counts[t]] = the layers i with
+// tmask[i, t] != 0 in index order, then -1 to the end of the row.
+__global__ void layer_lists_kernel(const int32_t* __restrict__ tmask,
+                                   int32_t* __restrict__ lists,
+                                   int32_t* __restrict__ counts, int h, int T) {
+  const int t = (int)((blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (t >= T) return;  // the whole warp
+  int32_t* row = lists + (size_t)t * h;
+  int count = 0;
+  for (int i0 = 0; i0 < h; i0 += 32) {
+    const int i = i0 + lane;
+    const bool use = i < h && tmask[(size_t)i * T + t] != 0;
+    const unsigned m = __ballot_sync(0xffffffffu, use);
+    if (use) row[count + __popc(m & ((1u << lane) - 1u))] = i;
+    count += __popc(m);
+  }
+  for (int j = count + lane; j < h; j += 32) row[j] = -1;
+  if (lane == 0) counts[t] = count;
+}
+
+constexpr int WARPS = 8;
+constexpr int BATCH_THREADS = WARPS * 32;
+constexpr int MAX_TT = 32;                // timepoints in a tile
+constexpr int SMEM_BYTES = 48 * 1024;     // no opt-in needed
+
+struct BatchArgs {
+  const int8_t* valid;
+  const int8_t* present;
+  const int32_t* attrs;
+  const int32_t* lists;
+  const int32_t* counts;
+  int8_t* o_valid;
+  int8_t* o_present;
+  int32_t* o_attrs;
+  long long n;  // slots
+  int h, K, T;
+  int sg;  // groups of 32 slots in a tile; the warps of a group share its rows
+  int tt;  // timepoints in a tile
+  int kt;  // attrs in a tile: K, or a share of K when one timepoint's
+           // K attrs for 32 slots do not fit in shared memory
+  bool vec;  // K == 4 and attrs 16-byte aligned: one int4 load a layer
+};
+
+__host__ __device__ inline int stage_stride(int tt, int kt) { return (tt * kt) | 1; }
+
+__host__ __device__ inline int stage_bytes(int sg, int tt, int kt) {
+  return sg * 32 * (stage_stride(tt, kt) * 4 + 2 * tt);
+}
+
+// Copy `rows` runs of `cols` elements, run r from src + r * sstride to
+// dst + r * dstride: a warp per run when runs are long, else one flat loop.
+template <typename E>
+__device__ void write_runs(E* dst, long long dstride, const E* src, int sstride,
+                           int rows, int cols) {
+  if (cols >= 16) {
+    for (int r = threadIdx.x >> 5; r < rows; r += WARPS)
+      for (int c = threadIdx.x & 31; c < cols; c += 32)
+        dst[r * dstride + c] = src[r * sstride + c];
+  } else {
+    for (int q = threadIdx.x; q < rows * cols; q += BATCH_THREADS) {
+      const int r = q / cols, c = q - r * cols;
+      dst[r * dstride + c] = src[r * sstride + c];
+    }
+  }
+}
+
+// KC accumulators a pass: KC == 4 is the K = 4 kernel (one pass, unrolled,
+// held to 32 registers for 2048 threads an SM); KC == 8 covers any K in
+// passes of up to 8 attrs.  I indexes the stacks: int when every index fits
+// in 31 bits (fewer instructions a step), else long long.
+template <int KC, typename I>
+__global__ void __launch_bounds__(BATCH_THREADS, KC == 4 ? 8 : 1)
+overlay_batch_kernel(const BatchArgs a) {
+  extern __shared__ int32_t stage[];
+  const int slots = a.sg * 32, stride = stage_stride(a.tt, a.kt);
+  int8_t* s_valid = reinterpret_cast<int8_t*>(stage + slots * stride);
+  int8_t* s_present = s_valid + slots * a.tt;
+  const long long s0 = (long long)blockIdx.x * slots;
+  const int t0 = blockIdx.y * a.tt, k0 = blockIdx.z * a.kt;
+  const int tn = min(a.tt, a.T - t0), kn = min(a.kt, a.K - k0);
+  const int sn = (int)min((long long)slots, a.n - s0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ls = (warp % a.sg) * 32 + lane;  // the thread's slot in the tile
+  const long long s = s0 + ls;
+  const bool live = ls < sn;
+
+  for (int r = warp / a.sg; r < tn; r += WARPS / a.sg) {
+    const int t = t0 + r;
+    const int cnt = a.counts[t];
+    const int32_t* list = a.lists + (size_t)t * a.h;
     int acc_v = 0;
     int8_t acc_p = 0;
-    for (int i = 0; i < h; ++i) {
-      const int vi = tmask[i * T + t] != 0 && valid[i * n + s] != 0;
-      if (vi) acc_p = present[i * n + s];
-      acc_v |= vi;
-    }
-    o_valid[s * T + t] = (int8_t)acc_v;
-    o_present[s * T + t] = acc_p;
-    for (int k = 0; k < K; ++k) {
-      int8_t p = 0;
-      int32_t a = -1;
-      for (int i = 0; i < h; ++i) {
-        const long long off = i * n + s;
-        if (tmask[i * T + t] != 0 && valid[off] != 0) {
-          p = present[off];
-          const int32_t ai = attrs[off * K + k];
-          if (ai != -1) a = ai;
+    for (int kb = 0; kb == 0 || kb < kn; kb += KC) {
+      int32_t acc[KC];
+#pragma unroll
+      for (int q = 0; q < KC; ++q) acc[q] = -1;
+      acc_v = 0;
+      acc_p = 0;
+#pragma unroll 4
+      for (int j = 0; live && j < cnt; ++j) {
+        const I off = (I)__ldg(list + j) * (I)a.n + (I)s;
+        if (__ldg(a.valid + off) == 0) continue;
+        acc_v = 1;
+        acc_p = __ldg(a.present + off);
+        const int32_t* src = a.attrs + (off * (I)a.K + (I)(k0 + kb));
+        int32_t ai[KC];
+        if (KC == 4 && a.vec) {
+          const int4 v4 = __ldg(reinterpret_cast<const int4*>(src));
+          ai[0] = v4.x; ai[1] = v4.y; ai[2] = v4.z; ai[3] = v4.w;
+        } else {
+#pragma unroll
+          for (int q = 0; q < KC; ++q) ai[q] = kb + q < kn ? __ldg(src + q) : -1;
         }
-        if (p == 0) a = -1;
+#pragma unroll
+        for (int q = 0; q < KC; ++q) {
+          if (ai[q] != -1) acc[q] = ai[q];
+          if (acc_p == 0) acc[q] = -1;
+        }
       }
-      o_attrs[(s * T + t) * K + k] = a;
+      if (live) {
+        int32_t* dst = stage + ls * stride + r * a.kt + kb;
+#pragma unroll
+        for (int q = 0; q < KC; ++q)
+          if (kb + q < kn) dst[q] = acc[q];
+      }
     }
+    if (live) {
+      s_valid[ls * a.tt + r] = (int8_t)acc_v;
+      s_present[ls * a.tt + r] = acc_p;
+    }
+  }
+  __syncthreads();
+
+  // slot s's run: timepoints t0 .. t0 + tn, attrs k0 .. k0 + kn (tn == 1
+  // whenever kn < K, so a run is contiguous in the output either way)
+  const long long first = s0 * a.T + t0;
+  write_runs(a.o_attrs + first * a.K + k0, (long long)a.T * a.K, stage, stride,
+             sn, tn * kn);
+  if (blockIdx.z == 0) {
+    write_runs(a.o_valid + first, a.T, s_valid, a.tt, sn, tn);
+    write_runs(a.o_present + first, a.T, s_present, a.tt, sn, tn);
   }
 }
 
@@ -125,17 +262,57 @@ int overlay_launch(const void* valid, const void* present, const void* attrs,
   return (int)cudaGetLastError();
 }
 
-// + tmask: (h, T) int32; outputs (n, T) and (n, T, K).
+// tmask: (h, T) int32 -> lists (T, h) int32 (-1 past each count) and
+// counts (T,) int32.
+int layer_lists_launch(const void* tmask, void* lists, void* counts, int h,
+                       int T, void* stream) {
+  if (h < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)(((long long)T * 32 + 255) / 256);
+  layer_lists_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)tmask, (int32_t*)lists, (int32_t*)counts, h, T);
+  return (int)cudaGetLastError();
+}
+
+// + tmask: (h, T) int32; lists: (T, h) int32 and counts: (T,) int32
+// scratch; outputs (n, T) and (n, T, K).
 int overlay_batch_launch(const void* valid, const void* present,
-                         const void* attrs, const void* tmask, void* o_valid,
-                         void* o_present, void* o_attrs, int h, long long n,
-                         int K, int T, void* stream) {
+                         const void* attrs, const void* tmask, void* lists,
+                         void* counts, void* o_valid, void* o_present,
+                         void* o_attrs, int h, long long n, int K, int T,
+                         void* stream) {
   if (h < 1 || n < 1 || K < 0 || T < 1) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-  overlay_batch_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)valid, (const int8_t*)present, (const int32_t*)attrs,
-      (const int32_t*)tmask, (int8_t*)o_valid, (int8_t*)o_present,
-      (int32_t*)o_attrs, h, n, K, T);
+  const cudaStream_t st = (cudaStream_t)stream;
+  int err = layer_lists_launch(tmask, lists, counts, h, T, stream);
+  if (err != 0) return err;
+  // the tile: tt timepoints; 8 warps in sg groups of 32 slots, a group's
+  // warps on rows t0, t0 + 8 / sg, ...
+  int tt = T < MAX_TT ? T : MAX_TT;
+  int rows = 1;
+  while (rows < tt && rows < WARPS) rows *= 2;
+  int sg = WARPS / rows, kt = K;
+  if (stage_bytes(sg, tt, kt) > SMEM_BYTES) {  // large K: fewer per tile
+    sg = 1;
+    while (tt > 1 && stage_bytes(sg, tt, kt) > SMEM_BYTES) tt = (tt + 1) / 2;
+    while (stage_bytes(sg, tt, kt) > SMEM_BYTES) kt = (kt + 1) / 2;
+  }
+  const long long gx = (n + sg * 32 - 1) / (sg * 32);
+  const long long gy = (T + tt - 1) / tt, gz = K == 0 ? 1 : (K + kt - 1) / kt;
+  if (gx > 2147483647LL || gy > 65535 || gz > 65535) return (int)cudaErrorInvalidValue;
+  BatchArgs args{(const int8_t*)valid, (const int8_t*)present,
+                 (const int32_t*)attrs, (const int32_t*)lists,
+                 (const int32_t*)counts, (int8_t*)o_valid, (int8_t*)o_present,
+                 (int32_t*)o_attrs, n, h, K, T, sg, tt, kt,
+                 K == 4 && kt == 4 && ((uintptr_t)attrs & 15) == 0};
+  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz);
+  const int smem = stage_bytes(sg, tt, kt);
+  const bool narrow = (long long)h * n * (K > 1 ? K : 1) < (1LL << 31);
+  if (K == 4 && kt == 4) {
+    if (narrow) overlay_batch_kernel<4, int><<<grid, BATCH_THREADS, smem, st>>>(args);
+    else overlay_batch_kernel<4, long long><<<grid, BATCH_THREADS, smem, st>>>(args);
+  } else {
+    if (narrow) overlay_batch_kernel<8, int><<<grid, BATCH_THREADS, smem, st>>>(args);
+    else overlay_batch_kernel<8, long long><<<grid, BATCH_THREADS, smem, st>>>(args);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,8 @@ LAUNCHES = {"overlay": 0, "overlay_batch": 0}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "overlay_launch": [_P] * 6 + [_I, _L, _I, _P],
-    "overlay_batch_launch": [_P] * 7 + [_I, _L, _I, _I, _P],
+    "overlay_batch_launch": [_P] * 9 + [_I, _L, _I, _I, _P],
+    "layer_lists_launch": [_P] * 3 + [_I, _I, _P],
 }
 
 
@@ -74,6 +75,35 @@ def overlay(valid, present, attrs):
     return o_v, o_p, o_a
 
 
+def _tmask(tmask, device, h=None):
+    """An (h, T) layer->timepoint mask as contiguous int32 on ``device``."""
+    if tmask.dim() != 2 or 0 in tmask.shape or h not in (None, tmask.shape[0]):
+        raise ValueError(f"tmask must be (h={h or 'h>0'}, T>0), got "
+                         f"{tuple(tmask.shape)}")
+    return tmask.to(device, torch.int32).contiguous()
+
+
+def layer_lists(tmask):
+    """The batch kernel's pre-pass alone: for each timepoint t of an
+    (h, T) mask, the layers i with ``tmask[i, t]`` set, in index order.
+    Returns lists (T, h) int32, -1 past each count, and counts (T,)
+    int32.  The main path runs it inside ``overlay_batch``."""
+    tmask = torch.as_tensor(tmask)
+    if _on_cpu(tmask):
+        return ref.layer_lists_ref(tmask)
+    tmask = _tmask(tmask, tmask.device)
+    h, T = tmask.shape
+    lists = torch.empty((T, h), dtype=torch.int32, device=tmask.device)
+    counts = torch.empty(T, dtype=torch.int32, device=tmask.device)
+    lib = _build.load("delta_overlay", _SIGNATURES)
+    with torch.cuda.device(tmask.device):
+        err = lib.layer_lists_launch(tmask.data_ptr(), lists.data_ptr(),
+                                     counts.data_ptr(), h, T,
+                                     _build.stream_of(tmask))
+    _build.check(lib, err, "delta_overlay.layer_lists")
+    return lists, counts
+
+
 def overlay_batch(valid, present, attrs, tmask):
     """Time-batched fold: stacked deltas (h, P, S[, K]) + layer->timepoint
     mask (h, T) -> per-timepoint outputs (P, S, T[, K]).
@@ -88,10 +118,10 @@ def overlay_batch(valid, present, attrs, tmask):
     valid, present, attrs = _stacks(valid, present, attrs)
     h, P, S = valid.shape
     K = attrs.shape[-1]
-    if tmask.dim() != 2 or tmask.shape[0] != h or tmask.shape[1] == 0:
-        raise ValueError(f"tmask must be (h={h}, T>0), got {tuple(tmask.shape)}")
-    tmask = tmask.to(valid.device, torch.int32).contiguous()
+    tmask = _tmask(tmask, valid.device, h)
     T = tmask.shape[1]
+    # the pre-pass's per-timepoint layer lists (T, h), then their counts (T,)
+    lists = torch.empty(T * (h + 1), dtype=torch.int32, device=valid.device)
     o_v = torch.empty((P, S, T), dtype=torch.bool, device=valid.device)
     o_p = torch.empty((P, S, T), dtype=torch.int8, device=valid.device)
     o_a = torch.empty((P, S, T, K), dtype=torch.int32, device=valid.device)
@@ -99,7 +129,8 @@ def overlay_batch(valid, present, attrs, tmask):
     with torch.cuda.device(valid.device):
         err = lib.overlay_batch_launch(
             valid.data_ptr(), present.data_ptr(), attrs.data_ptr(),
-            tmask.data_ptr(), o_v.data_ptr(), o_p.data_ptr(), o_a.data_ptr(),
+            tmask.data_ptr(), lists.data_ptr(), lists[T * h:].data_ptr(),
+            o_v.data_ptr(), o_p.data_ptr(), o_a.data_ptr(),
             h, P * S, K, T, _build.stream_of(valid))
     _build.check(lib, err, "delta_overlay.overlay_batch")
     LAUNCHES["overlay_batch"] += 1

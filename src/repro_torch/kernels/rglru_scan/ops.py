@@ -15,9 +15,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.rglru_scan import ref
 
 LAUNCHES = {"rglru": 0}
+CHUNK = 64  # steps a block of the kernel scans (rglru_scan.cu's CHUNK)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"rglru_launch": [_P, _P, _P, _I, _I, _I, _P]}
+_SIGNATURES = {"rglru_launch": [_P, _P, _P, _P, _I, _I, _I, _P]}
 
 
 def rglru(log_a, b):
@@ -36,10 +37,12 @@ def rglru(log_a, b):
     log_a, b = log_a.contiguous(), b.contiguous()
     B, S, W = log_a.shape
     h = torch.empty_like(log_a)
+    # the chunks' carries (one word per lane) and the block ticket
+    scratch = torch.empty(B * W + 1, dtype=torch.int64, device=log_a.device)
     lib = _build.load("rglru_scan", _SIGNATURES)
     with torch.cuda.device(log_a.device):
         err = lib.rglru_launch(log_a.data_ptr(), b.data_ptr(), h.data_ptr(),
-                               B, S, W, _build.stream_of(log_a))
+                               scratch.data_ptr(), B, S, W, _build.stream_of(log_a))
     _build.check(lib, err, "rglru_scan.rglru")
     LAUNCHES["rglru"] += 1
     return h

@@ -20,3 +20,34 @@ def rglru_ref(log_a, b):
         la = torch.cat([la[:, :off], la[:, off:] + la[:, :-off]], dim=1)
         off *= 2
     return h
+
+
+def rglru_chunked_ref(log_a, b, chunk):
+    """The kernel's decomposition in plain PyTorch, for tests and checks:
+    cut the sequence into chunks of ``chunk`` steps (the last padded with
+    log_a = 0, b = 0, which leave h as it is), scan each chunk from h = 0
+    for its aggregate (decay = the product of its exp(log_a), hl = its
+    last value), carry ``decay * carry + hl`` from chunk to chunk in
+    order, and rescan each chunk from its carry.  log_a, b: (B, S, W)
+    float32 -> h: (B, S, W) float32."""
+    la = torch.as_tensor(log_a).to(torch.float32)
+    x = torch.as_tensor(b).to(torch.float32)
+    B, S, W = la.shape
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    a = torch.exp(torch.nn.functional.pad(la, (0, 0, 0, pad))).view(B, n, chunk, W)
+    x = torch.nn.functional.pad(x, (0, 0, 0, pad)).view(B, n, chunk, W)
+    decay = la.new_ones(B, n, W)
+    hl = la.new_zeros(B, n, W)
+    for u in range(chunk):
+        hl = a[:, :, u] * hl + x[:, :, u]
+        decay = decay * a[:, :, u]
+    carry = [la.new_zeros(B, W)]
+    for c in range(n - 1):
+        carry.append(decay[:, c] * carry[-1] + hl[:, c])
+    hv = torch.stack(carry, dim=1)
+    out = la.new_empty(B, n, chunk, W)
+    for u in range(chunk):
+        hv = a[:, :, u] * hv + x[:, :, u]
+        out[:, :, u] = hv
+    return out.view(B, n * chunk, W)[:, :S]

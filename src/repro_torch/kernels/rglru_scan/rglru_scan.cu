@@ -8,54 +8,103 @@
 //
 // Bound: the function reads log_a and x once and writes h once (12 bytes
 // per element) and does 3 float operations per element, so the bytes
-// bound it.  Design: one thread owns one (b, w) lane and walks the whole
-// sequence, so h never leaves a register and nothing crosses threads;
-// neighbouring threads take neighbouring w, so each step's loads and
-// store are coalesced.  The chain through h is serial, so each thread
-// first issues the loads of UNROLL steps (2 * UNROLL independent loads in
-// flight) and their expf, then runs the dependent FMAs.  With B * W lanes
-// this fills the card only when B * W is large: the serving path has
-// B * W = 16,384 threads, about 124 per SM, too few to keep HBM busy.  A
-// chunked two-pass scan (chunk-local scans plus a carry pass) would fill
-// it; that is later work.
+// bound it.  To keep HBM busy the card needs far more loads in flight than
+// one thread per (b, w) lane gives (B * W = 16,384 lanes on the serving
+// path, about 124 threads per SM), so the sequence is cut too.
+//
+// Design: a single-pass chained chunk scan.  A block owns CHUNK steps of
+// LANES lanes (one thread per lane, neighbouring threads on neighbouring
+// w, so every load and store is coalesced):
+//  1. it takes a ticket from an atomic counter and maps it chunk-major to
+//     (chunk c, b, lane tile), so every block it waits on holds a smaller
+//     ticket, is already running, and cannot wait on it: no deadlock
+//     whatever the number of resident blocks;
+//  2. it loads its chunk of log_a and x into registers, once, and computes
+//     the chunk's aggregate from h = 0: the decay P = prod exp(log_a) and
+//     the local scan's last value hl;
+//  3. each thread waits for its lane's inclusive carry from chunk c - 1,
+//     publishes P * carry_in + hl for chunk c + 1, and reruns its chunk
+//     from carry_in on the values it holds, writing h once.
+// A carry travels as one 64-bit word, (c + 1) << 32 | float bits, stored
+// with st.release and polled with ld.acquire at gpu scope, so the value
+// and its flag are seen together.  Each chunk waits only for its
+// predecessor's inclusive carry (no look-back), so the sums are combined
+// in one fixed order and two runs give the same bits.  The words and the
+// ticket live in wrapper scratch, zeroed on the stream before each launch.
+// A wait that sees no carry in 2^24 polls (seconds) traps, so a fault
+// fails the launch instead of hanging the card.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int UNROLL = 16;
+constexpr int LANES = 128;
+constexpr int CHUNK = 64;  // keep ops.CHUNK equal
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__global__ void __launch_bounds__(LANES)
 rglru_kernel(const float* __restrict__ log_a, const float* __restrict__ x,
-             float* __restrict__ h, int S, int W, long long lanes) {
-  const long long lane = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (lane >= lanes) return;
-  const long long bi = lane / W, w = lane % W;
-  const size_t base = (size_t)bi * S * W + w;
-  const float* la = log_a + base;
-  const float* xb = x + base;
-  float* out = h + base;
-  float hv = 0.f;
-  int t = 0;
-  for (; t + UNROLL <= S; t += UNROLL) {
-    float a[UNROLL], v[UNROLL];
+             float* __restrict__ h, unsigned long long* __restrict__ carry,
+             unsigned int* __restrict__ ticket, int S, int W, int tiles,
+             int lane_tiles, int chunks) {
+  __shared__ unsigned int s_ticket;
+  if (threadIdx.x == 0) s_ticket = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const int c = (int)(s_ticket / (unsigned)lane_tiles);
+  const int r = (int)(s_ticket % (unsigned)lane_tiles);
+  const int b = r / tiles;
+  const int w = (r % tiles) * LANES + threadIdx.x;
+  if (w >= W) return;
+  const int t0 = c * CHUNK;
+  const int n = min(CHUNK, S - t0);  // the last chunk may be short
+  const size_t base = ((size_t)b * S + t0) * W + w;
+
+  // steps past the end get a = 1, x = 0, which leave h as it is
+  float a[CHUNK], v[CHUNK];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      a[u] = __ldg(la + (size_t)(t + u) * W);
-      v[u] = __ldg(xb + (size_t)(t + u) * W);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) a[u] = expf(a[u]);
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      hv = a[u] * hv + v[u];
-      out[(size_t)(t + u) * W] = hv;
-    }
+  for (int u = 0; u < CHUNK; ++u) {
+    a[u] = u < n ? __ldg(log_a + base + (size_t)u * W) : 0.f;
+    v[u] = u < n ? __ldg(x + base + (size_t)u * W) : 0.f;
   }
-  for (; t < S; ++t) {
-    hv = expf(__ldg(la + (size_t)t * W)) * hv + __ldg(xb + (size_t)t * W);
-    out[(size_t)t * W] = hv;
+  float decay = 1.f, hl = 0.f;
+#pragma unroll
+  for (int u = 0; u < CHUNK; ++u) {
+    a[u] = expf(a[u]);
+    hl = fmaf(a[u], hl, v[u]);
+    decay *= a[u];
+  }
+
+  unsigned long long* word = carry + (size_t)b * W + w;
+  float cin = 0.f;
+  if (c > 0) {
+    unsigned long long got = load_acquire(word);
+    for (unsigned spins = 0; (unsigned)(got >> 32) != (unsigned)c; ++spins) {
+      if (spins == 1u << 24) __trap();
+      got = load_acquire(word);
+    }
+    cin = __uint_as_float((unsigned)got);
+  }
+  if (c + 1 < chunks)
+    store_release(word, ((unsigned long long)(c + 1) << 32) |
+                            __float_as_uint(fmaf(decay, cin, hl)));
+
+  float hv = cin;
+  float* out = h + base;
+#pragma unroll
+  for (int u = 0; u < CHUNK; ++u) {
+    hv = fmaf(a[u], hv, v[u]);
+    if (u < n) out[(size_t)u * W] = hv;
   }
 }
 
@@ -67,15 +116,24 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// log_a, x, h: contiguous (B, S, W) float32 on the device.
-int rglru_launch(const void* log_a, const void* x, void* h, int B, int S, int W,
-                 void* stream) {
+// log_a, x, h: contiguous (B, S, W) float32 on the device; scratch: at
+// least B * W + 1 eight-byte words on the device (carries, then ticket).
+int rglru_launch(const void* log_a, const void* x, void* h, void* scratch,
+                 int B, int S, int W, void* stream) {
   if (B < 1 || S < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const long long lanes = (long long)B * W;
-  const long long blocks = (lanes + THREADS - 1) / THREADS;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long words = (long long)B * W;
+  const int tiles = (W + LANES - 1) / LANES;
+  const int chunks = (S + CHUNK - 1) / CHUNK;
+  const long long lane_tiles = (long long)B * tiles;
+  const long long blocks = lane_tiles * chunks;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  rglru_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)log_a, (const float*)x, (float*)h, S, W, lanes);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)(words + 1) * 8, st);
+  if (err != cudaSuccess) return (int)err;
+  unsigned long long* carry = (unsigned long long*)scratch;
+  rglru_kernel<<<(unsigned)blocks, LANES, 0, st>>>(
+      (const float*)log_a, (const float*)x, (float*)h, carry,
+      (unsigned int*)(carry + words), S, W, tiles, (int)lane_tiles, chunks);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,7 @@ from repro.core.delta import Delta as RefDelta
 from repro.core.delta import delta_sum as ref_delta_sum
 from repro.kernels.delta_overlay import ops as ref_ops
 from repro_torch.core.delta import Delta, delta_sum
-from repro_torch.kernels.delta_overlay import ops
+from repro_torch.kernels.delta_overlay import ops, ref
 
 OVERLAY_GRID = [(2, 1, 256, 1), (4, 3, 256, 4), (8, 2, 512, 2), (3, 2, 300, 3),
                 (5, 2, 777, 4), (3, 1, 256, 20)]
@@ -105,3 +105,45 @@ def test_overlay_refuses_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.overlay(x, x, torch.zeros((2, 1, 4, 1), dtype=torch.int32,
                                       device="meta"))
+
+
+def _tmasks():
+    """(name, tmask): the wide snapshot group's structure (2 shared path
+    layers fed to every timepoint, then one eventlist layer per
+    timepoint), a random mask with a column no layer feeds and a layer no
+    timepoint uses, one layer, and one timepoint."""
+    rng = np.random.RandomState(5)
+    wide = np.zeros((2 + 6, 6), np.int8)
+    wide[:2] = 1
+    wide[2 + np.arange(6), np.arange(6)] = 1
+    ragged = (rng.rand(7, 6) < 0.6).astype(np.int8)
+    ragged[:, 2] = 0
+    ragged[4] = 0
+    return [("wide group", wide), ("random, empty column, unused layer", ragged),
+            ("h=1", np.array([[1, 0, 1]], np.int8)),
+            ("T=1", (rng.rand(5, 1) < 0.6).astype(np.int8))]
+
+
+@pytest.mark.parametrize("name,tmask", _tmasks(), ids=[n for n, _ in _tmasks()])
+def test_layer_lists_fold_matches_reference_kernel(name, tmask):
+    """The CUDA kernel's decomposition (the pre-pass's per-timepoint layer
+    lists, then a fold of only the listed layers that skips invalid ones)
+    in plain PyTorch, bit for bit against the reference Pallas kernel in
+    interpret mode and the port's plain batch fold."""
+    h, T = tmask.shape
+    valid, present, attrs = _stacks(np.random.RandomState(h * 31 + T), h, 1, 256, 4)
+    lists, counts = ref.layer_lists_ref(torch.from_numpy(tmask))
+    assert lists.shape == (T, h) and counts.shape == (T,)
+    assert lists.dtype == counts.dtype == torch.int32
+    for t in range(T):
+        want = np.nonzero(tmask[:, t])[0]
+        assert counts[t] == len(want)
+        np.testing.assert_array_equal(lists[t, :len(want)].numpy(), want)
+        assert (lists[t, len(want):] == -1).all()
+    assert all(torch.equal(a, b) for a, b in zip(
+        ops.layer_lists(torch.from_numpy(tmask)), (lists, counts)))
+    stacks = [torch.from_numpy(x) for x in (valid, present, attrs)]
+    got = ref.overlay_lists_ref(*stacks, lists, counts)
+    _assert_same(got, ref_ops.overlay_batch(valid, present, attrs, tmask,
+                                            use_pallas=True))
+    _assert_same(got, ops.overlay_batch(*stacks, torch.from_numpy(tmask)))

@@ -11,7 +11,7 @@ import torch
 
 from repro.kernels.rglru_scan import ops as ref_ops
 from repro.models.recurrent import rglru_scan as ref_scan
-from repro_torch.kernels.rglru_scan import ops
+from repro_torch.kernels.rglru_scan import ops, ref
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -51,3 +51,38 @@ def test_rglru_matches_sequential():
 def test_rglru_rejects_other_devices():
     with pytest.raises(ValueError):
         ops.rglru(torch.zeros(1, 4, 4, device="meta"), torch.zeros(1, 4, 4, device="meta"))
+
+
+CHUNK = ops.CHUNK
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 1, 33), (1, CHUNK - 1, 33), (2, CHUNK, 17),
+                                   (1, CHUNK + 1, 65), (1, 3 * CHUNK + 5, 31)])
+def test_rglru_chunked_decomposition_matches_reference_kernel(B, S, W):
+    """The CUDA kernel's decomposition (chunk aggregates, a serial carry,
+    a rescan from the carry) in plain PyTorch, at the kernel's chunk and
+    at ragged S and odd W, against the reference Pallas kernel in
+    interpret mode and the port's plain version."""
+    log_a, b = _inputs(S * 7 + W, B, S, W)
+    got = ref.rglru_chunked_ref(torch.from_numpy(log_a), torch.from_numpy(b), CHUNK)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, W)
+    pallas = ref_ops.rglru(jnp.asarray(log_a), jnp.asarray(b), chunk=CHUNK, tile_w=128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(
+        got.numpy(), ref.rglru_ref(torch.from_numpy(log_a), torch.from_numpy(b)).numpy(),
+        **TOL)
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 7, 16])
+def test_rglru_chunked_decomposition_any_chunk(chunk):
+    """Chunks shorter than the sequence, a ragged last chunk included, and
+    a chunk of one step (every step its own carry), against the
+    step-by-step recurrence."""
+    log_a, b = _inputs(chunk, 2, 45, 9, spread=1.0)
+    h = np.zeros((2, 9), np.float32)
+    seq = []
+    for t in range(45):
+        h = np.exp(log_a[:, t]) * h + b[:, t]
+        seq.append(h.copy())
+    got = ref.rglru_chunked_ref(torch.from_numpy(log_a), torch.from_numpy(b), chunk)
+    np.testing.assert_allclose(got.numpy(), np.stack(seq, 1), **TOL)
