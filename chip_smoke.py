@@ -31,8 +31,11 @@ one JSON line; any failure exits non-zero:
    bit; PageRank within atol=1e-6, rtol=1e-5; attention within 2e-5 in
    float32 and 2e-2 in bf16, RG-LRU within 2e-5, the reference's kernel
    test tolerances), on the inputs each step of the main paths gave it,
-   at headline shapes (motif also on an asymmetric stack with half its
-   diagonal set; ``overlay_batch`` also on a wide snapshot group's mask,
+   at headline shapes (the dense kernels in both of their regimes, each
+   row naming the regime that ran: 0/1 stacks, a 10% dense one whose rows
+   overflow the cluster kernels' row lists, and weighted asymmetric ones
+   with negative entries and a 60% dense column, one beside a 0/1
+   timepoint; motif also on an asymmetric stack with half its diagonal set; ``overlay_batch`` also on a wide snapshot group's mask,
    2 shared layers and one layer per timepoint; RG-LRU also on one
    4097-token prompt, a ragged last chunk) and on the reference's
    kernel-test grid, plus a bf16
@@ -662,12 +665,14 @@ def kernel_case(name, args, kw, tag, tol=None):
         kern, plain, tol = pr_ops.temporal_pagerank, pr_ref.pagerank_ref, DENSE_PR_TOL
         T, N, _ = args[0].shape
         (ops, nbytes), peak = pagerank_work(*args), FP32_OPS_PER_S
-        shape = dict(T=T, N=N, nnz=int((args[0] != 0).sum()), iters=20)
+        shape = dict(T=T, N=N, nnz=int((args[0] != 0).sum()), iters=20,
+                     regime=pr_ops.regime(N))
     elif name == "temporal_cc.cc":
         kern, plain = cc_ops.temporal_cc, cc_ref.cc_ref
         T, N, _ = args[0].shape
         (ops, nbytes), peak = cc_work(*args), INT32_OPS_PER_S
-        shape = dict(T=T, N=N, nnz=int((args[0] != 0).sum()), iters=32)
+        shape = dict(T=T, N=N, nnz=int((args[0] > 0).sum()), iters=32,
+                     regime=pr_ops.regime(N))
     elif name == "flash_attention":
         q = args[0]
         kern = fa_ops.flash_attention
@@ -776,13 +781,13 @@ def headline_inputs(dev):
 
     gd = torch.Generator(device=dev).manual_seed(13)
 
-    def analytics(T, N, p=0.02):
+    def analytics(T, N, p=0.02, gen=gd):
         """Symmetric 0/1 adjacency made on the card (2.1 GB at T=8
         N=8192) and a ~80% activity mask; edges may touch inactive nodes."""
-        a = torch.triu(torch.rand(T, N, N, generator=gd, device=dev) < p, 1)
+        a = torch.triu(torch.rand(T, N, N, generator=gen, device=dev) < p, 1)
         a = a.to(torch.float32)
         a += a.transpose(1, 2).clone()
-        return [a, (torch.rand(T, N, generator=gd, device=dev) < 0.8).to(torch.float32)]
+        return [a, (torch.rand(T, N, generator=gen, device=dev) < 0.8).to(torch.float32)]
 
     def attention(B, H, Sq, Sk, D, causal, window, dtype, holes=0):
         """The reference's kernel-test case on the card; ``holes`` > 0
@@ -832,6 +837,13 @@ def headline_inputs(dev):
     f32, bf16 = torch.float32, torch.bfloat16
     dense = [(f"T={T} N={N}", analytics(T, N))
              for T, N in ((4, 4096), (4, 4000), (8, 8192))]
+    # ~10% dense: a cluster CTA's 12,500 rows overflow its 8,000-entry row
+    # lists, so the cluster kernels sweep the bits.  This case and the
+    # weighted ones draw from generators of their own, so every other case
+    # gets the same inputs as without them.
+    dense.append(("T=2 N=1000 10% dense (no room for row lists: the bit sweep)",
+                  analytics(2, 1000, p=0.05,
+                            gen=torch.Generator(device=dev).manual_seed(17))))
     lm = [attention(1, 2, 64, 64, 32, True, 0, f32), attention(2, 1, 128, 128, 16, True, 0, bf16),
           attention(1, 2, 96, 160, 32, True, 48, f32), attention(1, 1, 64, 256, 64, False, 0, f32),
           attention(2, 2, 1, 96, 32, True, 0, f32), attention(1, 1, 1, 64, 16, True, 0, f32, 40),
@@ -845,6 +857,25 @@ def headline_inputs(dev):
         a[:, torch.arange(0, N, 2), torch.arange(0, N, 2)] = 1.0
         return [a.to(dev)]
 
+    gw = torch.Generator(device="cpu").manual_seed(19)
+
+    def weighted(T, N, p=0.02, binary=()):
+        """A weighted, asymmetric stack: 2% of entries in [0.25, 2), a
+        seventh of those negated and scaled by 0.1, column 7 60% dense, and
+        a ~80% activity mask; the timepoints in ``binary`` keep only the
+        0/1 pattern."""
+        w = torch.rand(T, N, N, generator=gw) * 1.75 + 0.25
+        w = torch.where(torch.rand(T, N, N, generator=gw) < 1 / 7, -0.1 * w, w)
+        a = torch.where(torch.rand(T, N, N, generator=gw) < p, w, 0.0)
+        a[:, :, 7] = torch.where(torch.rand(T, N, generator=gw) < 0.6, w[:, :, 7], 0.0)
+        for t in binary:
+            a[t] = (a[t] != 0).float()
+        return [a.to(dev), (torch.rand(T, N, generator=gw) < 0.8).float().to(dev)]
+
+    dense += [("T=2 N=1000 weighted asymmetric, negative entries, column 7 60% dense",
+               weighted(2, 1000)),
+              ("T=2 N=4000 as above at t=0, its 0/1 pattern at t=1",
+               weighted(2, 4000, binary=(1,)))]
     dense = [(k, tag, a) for tag, a in dense
              for k in ("temporal_pagerank.pagerank", "temporal_cc.cc")]
     return lm + [(k, tag, a, {}, None) for k, tag, a in dense + [

@@ -3,8 +3,9 @@
 Each ``kernels/<name>/<name>.cu`` exposes ``extern "C"`` launchers that
 take raw device pointers and a CUDA stream and return a ``cudaError_t``.
 ``nvcc`` compiles a source into ``build/repro_torch_ext/lib<name>-<hash>.so``
-under the repository root (the hash covers the source, the flags and
-the nvcc version, so a change to any of them is rebuilt); no PyTorch
+under the repository root (the hash covers the source, the shared
+``kernels/*.cuh`` headers, the flags and the nvcc version, so a change
+to any of them is rebuilt); no PyTorch
 header is compiled, so a build takes seconds.
 Builds start at first use, or all at once, in parallel, through
 ``build()``.  A failed build raises with the compiler's output.
@@ -39,9 +40,11 @@ def source(name: str) -> Path:
 
 def library(name: str) -> Path:
     """The built library's path, named by a hash of the source, the
-    flags and the compiler's version, so a change to any of them builds
-    anew."""
+    shared headers it may include (``kernels/*.cuh``), the flags and the
+    compiler's version, so a change to any of them builds anew."""
     h = hashlib.sha256(source(name).read_bytes())
+    for header in sorted(KERNELS_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update("\0".join((*NVCC_FLAGS, _nvcc_version())).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

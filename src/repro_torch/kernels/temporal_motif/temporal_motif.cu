@@ -16,10 +16,12 @@
 //  1. pack: one block per (t, 32 rows, 256 columns).  The block reads the
 //     tile's rows with aligned 16-byte loads (offsets into the whole stack,
 //     so any N works: a float4 may straddle two rows, and only its
-//     elements of the tile are kept), as 0/1 bytes in shared memory.  Warp w
-//     takes the tile's columns 32 w..32 w + 31: a ballot per row gives the
-//     row word R[t][i][w], each lane's own 32 flags the column word
-//     C[t][w][j] (stored word-major, so a warp writes 32 consecutive j).
+//     elements of the tile are kept; the stack's last float4, when T N N
+//     is not a multiple of 4, is read element by element), as 0/1 bytes in
+//     shared memory.  Warp w takes the tile's columns 32 w..32 w + 31: a
+//     ballot per row gives the row word R[t][i][w], each lane's own 32
+//     flags the column word C[t][w][j] (stored word-major, so a warp
+//     writes 32 consecutive j).
 //     Row words go out through shared memory, 8 consecutive words a row.
 //     Tail bits past N are zero.  R and C (uint32, T*N*W each: 16.8 MB
 //     together at T=4 N=4096) stay in L2 for the second pass.
@@ -48,14 +50,21 @@ pack_kernel(const float* __restrict__ adj, uint32_t* __restrict__ rows,
     reinterpret_cast<uint4*>(&tile[0][0])[f] = make_uint4(0, 0, 0, 0);
   __syncthreads();
   const int ncol = min(PC, N - j0);
+  const long long total = (long long)gridDim.z * N * N;  // T N N entries
   for (int f = threadIdx.x; f < PR * SPAN; f += 32 * WARPS) {
     const int r = f / SPAN, k = f % SPAN;
     if (i0 + r >= N) continue;
     const long long start = ((long long)t * N + i0 + r) * N + j0;
     const long long a = (start & ~3ll) + 4ll * k;  // first element of this float4
     if (a >= start + ncol) continue;
-    const float4 v = *reinterpret_cast<const float4*>(adj + a);
-    const float e[4] = {v.x, v.y, v.z, v.w};
+    float e[4];
+    if (a + 4 <= total) {
+      const float4 v = *reinterpret_cast<const float4*>(adj + a);
+      e[0] = v.x, e[1] = v.y, e[2] = v.z, e[3] = v.w;
+    } else {  // the stack's last, partial float4: no read past its end
+#pragma unroll
+      for (int c = 0; c < 4; ++c) e[c] = a + c < total ? adj[a + c] : 0.f;
+    }
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const long long col = a + c - start;

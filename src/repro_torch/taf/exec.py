@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Callable
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -70,10 +70,11 @@ def _pad_to_multiple(x: np.ndarray, mult: int, fill):
 
 
 def sharded_node_compute(son: SoN, kernel: Callable, mesh=None,
-                         device=None) -> np.ndarray:
+                         extra_args: Dict = None, *, device=None) -> np.ndarray:
     """Run a vectorized per-node kernel over the operand on ``device``
     (None: the CUDA card).  ``mesh=None`` is one worker on that device;
-    any other mesh raises until multi-card sharding lands."""
+    any other mesh raises until multi-card sharding lands.  ``extra_args``
+    keeps the reference's parameter slot and is ignored, as there."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded_node_compute runs one worker on one device; sharding "

@@ -35,6 +35,11 @@ def pytest_configure(config):
         "SIGALRM-based, main thread only; dumps all thread stacks and "
         "reaps leaked worker threads on expiry",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skips "
+        "without one",
+    )
 
 
 @pytest.hookimpl(hookwrapper=True)

@@ -150,6 +150,21 @@ def test_padding_rows_carry_absent_and_are_cut(monkeypatch):
     np.testing.assert_array_equal(out, sots.init_present.astype(np.int32) * 10)
 
 
+def test_fourth_positional_argument_is_the_references_extra_args():
+    """The reference's slots are (son, kernel, mesh, extra_args): a fourth
+    positional argument is accepted and ignored, and never taken as the
+    device."""
+    ref_sots, sots = _pair(33, N=8)
+    patched = taf_exec.with_init_degree(sots)
+    ref_patched = dataclasses.replace(ref_sots, init_attrs=patched.init_attrs.copy())
+    k = taf_exec.degree_at_kernel(12)
+    want = taf_exec.sharded_node_compute(patched, k, device="cpu")
+    got = taf_exec.sharded_node_compute(patched, k, None, {}, device="cpu")
+    _exact(got, want)
+    _exact(got, np.asarray(ref_exec.sharded_node_compute(
+        ref_patched, ref_exec.degree_at_kernel(12), None, {})))
+
+
 def test_mesh_other_than_none_raises():
     _, sots = _pair(32, N=5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
