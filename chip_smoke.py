@@ -18,7 +18,14 @@ one JSON line; any failure exits non-zero:
    replay; a repeated run served from the device-operand cache), and the
    dense analytics kernels ``temporal_pagerank`` / ``temporal_cc`` on
    the triangles step's dense stack against the fused ``pagerank`` /
-   ``components`` plans.  Then the LM serving path: ``serve(
+   ``components`` plans.  Then the same read path over the wire
+   (``service``): the same events and config indexed over a port
+   ``LocalCluster`` of 3 subprocess cells (``repro_torch.service.cell``,
+   file backend, r=2), the 64 snapshots and the single snapshot by the
+   kernel fold bit for bit against the local host fold, the fused
+   ``components T=128`` plan against the local one, then cell 0
+   SIGKILLed and the 64 snapshots read again through failover.  Then the
+   LM serving path: ``serve(
    "recurrentgemma-9b", batch=4, prompt_len=4096, gen_tokens=16)`` at
    full width and depth in bf16 with seeded weights (prefill seconds,
    decode tokens/s, parameter bytes, peak memory), a batch-1 check that
@@ -44,22 +51,25 @@ one JSON line; any failure exits non-zero:
    less in a window moves an output by more than its 2^-8 bound (with
    and without holes in k_pos); on every case the redesigned kernels are
    also held against the plain emulation of their decomposition
-   (``overlay_batch``'s pre-pass layer lists bit for bit against
-   ``layer_lists_ref``, RG-LRU within 2e-5 of ``rglru_chunked_ref``);
+   (``overlay`` bit for bit against ``overlay_seeded_ref``,
+   ``overlay_batch``'s pre-pass layer lists against ``layer_lists_ref``,
+   RG-LRU within 2e-5 of ``rglru_chunked_ref``);
    device times from
    CUDA events, beside the plain version's, one library call's where
    there is one, and the bound: the larger of the bytes the function
    must move over the memory rate and the operations these inputs need
    over the peak rate for their type, both counted from the data.
-   Then ``overlay_batch`` bit for bit at the edges the cases above do not
-   reach: other K (0, 1, 3, 20, 1000), one layer, one timepoint, and more
+   Then ``overlay`` bit for bit at the edges of its seed from layer 0
+   (``ref.overlay_edge_stacks``, K = 0, 1, 4, 5, 20) and on unaligned attrs,
+   and ``overlay_batch`` at the edges the cases above do not reach: other
+   K (0, 1, 3, 20, 1000), one layer, one timepoint; both folds on more
    than 2^31 attrs (64-bit indices).
 
 Phase 1 also prints ``nvidia-smi``'s own line.  The line before the
 last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  ``--device cpu --events N`` rehearses
-phase 3 on the CPU with the plain versions (the LM path at its reduced
-config) and prints no result.
+phase 3 on the CPU with the plain versions (the wire cluster included,
+the LM path at its reduced config) and prints no result.
 """
 from __future__ import annotations
 
@@ -150,6 +160,7 @@ def fused_and_staged(q, what: str, exact: bool = True):
     emit(phase="main_path", check=what, fused_seconds=seconds,
          shape=list(np.shape(pairs[-1][0])), max_abs_err=err,
          notes=[n for n in fused.notes if n.startswith("compile")])
+    return fused.value
 
 
 class Recorder:
@@ -192,6 +203,10 @@ def _keep(a):
 
 
 def main_path(device, n_events: int, recorder=None):
+    """Returns the kernels' launch counts and what the service phase
+    holds the wire store against: the events, the config, the 64
+    timepoints and their host-fold snapshots, the single snapshot, and
+    the fused ``components T=128`` plan with its result."""
     from repro_torch.data.temporal_graph_gen import generate, naive_state_at
     from repro_torch.kernels.delta_overlay import ops as ov_ops
     from repro_torch.kernels.temporal_cc import ops as cc_ops
@@ -226,11 +241,11 @@ def main_path(device, n_events: int, recorder=None):
     ts = np.concatenate([np.linspace(lo + f * span, lo + f * span + 240, 16)
                          for f in (0.2, 0.4, 0.6, 0.8)]).astype(np.int64)
     t1 = time.perf_counter()
-    host = store.snapshots(ts, use_kernel=False)
+    host64 = store.snapshots(ts, use_kernel=False)
     t2 = time.perf_counter()
     kern = store.snapshots(ts, use_kernel=True)
     t3 = time.perf_counter()
-    for j, (a, b) in enumerate(zip(kern, host)):
+    for j, (a, b) in enumerate(zip(kern, host64)):
         same_state(a, b, f"snapshots[{j}] t={ts[j]}")
     t_one = int(ts[5])
     one_host = store.snapshot(t_one, use_kernel=False)
@@ -270,9 +285,9 @@ def main_path(device, n_events: int, recorder=None):
     fused_and_staged(store.nodes(q0, q1).timeslice(
         list(np.linspace(q0, q1 - 1, 128).astype(np.int64))), "slice T=128")
     sub = store.subgraphs(q0, q1)
-    fused_and_staged(sub.node_compute(
-        tc.components(), style="temporal",
-        points=np.linspace(q0, q1 - 1, 128).astype(np.int64)), "components T=128")
+    cc_points = np.linspace(q0, q1 - 1, 128).astype(np.int64)
+    components = fused_and_staged(sub.node_compute(
+        tc.components(), style="temporal", points=cc_points), "components T=128")
     fused_and_staged(sub.node_compute(
         tc.pagerank(), style="temporal",
         points=np.linspace(q0, q1 - 1, 32).astype(np.int64)), "pagerank T=32",
@@ -291,7 +306,10 @@ def main_path(device, n_events: int, recorder=None):
                 for k, v in mod.LAUNCHES.items()}
     emit(phase="main_path", check="launches", launches=launches,
          plan_compile=store.cache_stats()["plan_compile"])
-    return launches
+    local = dict(events=events, cfg=store.cfg, ts=ts, host=host64, t_one=t_one,
+                 one_host=one_host, cc_span=(q0, q1), cc_points=cc_points,
+                 components=components)
+    return launches, local
 
 
 def kernel_style_degree(device, sots, ts):
@@ -377,7 +395,87 @@ def sync(device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3b: the LM serving path
+# Phase 3b: the read path over the wire
+# ---------------------------------------------------------------------------
+
+
+def service_path(device, local) -> None:
+    """The main path's events and config indexed over a port
+    ``LocalCluster`` of 3 subprocess cells (file backend, r=2), then
+    Algorithm 1 over the wire with the kernel fold on ``device``: the 64
+    snapshots and one single snapshot bit for bit against the local
+    store's host fold, and the fused ``components T=128`` plan against the
+    local store's; then cell 0 is SIGKILLed and the 64 snapshots are read
+    again through the surviving replicas (a read that fails raises, and
+    the phase with it).  The delta_overlay launches are counted from 0
+    just before the snapshots and read after the second pass: on the card
+    both kernels must have launched."""
+    import tempfile
+
+    from repro_torch.kernels.delta_overlay import ops as ov_ops
+    from repro_torch.service import ClusterSpec, LocalCluster
+    from repro_torch.taf import HistoricalGraphStore
+    from repro_torch.taf import compile as tc
+    from repro_torch.taf.plan import PlanExecutor
+
+    ts, host = local["ts"], local["host"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cells-") as root, \
+            LocalCluster(ClusterSpec(n_cells=3, r=2, backend="file", root=root),
+                         mode="subprocess") as cluster:
+        modules = [proc.args[2] for proc in cluster._procs]
+        if modules != ["repro_torch.service.cell"] * 3:
+            fail(f"service: the cluster spawned {modules}")
+        client = cluster.client(timeout=2.0, retries=1, backoff=0.02, suspect_ttl=30.0)
+        t0 = time.perf_counter()
+        store = HistoricalGraphStore.build(local["events"], local["cfg"], store=client,
+                                           device=device)
+        build_s = time.perf_counter() - t0
+        for k in ov_ops.LAUNCHES:
+            ov_ops.LAUNCHES[k] = 0
+
+        def snapshots(what):
+            t = time.perf_counter()
+            got = store.snapshots(ts, use_kernel=True)
+            seconds = time.perf_counter() - t
+            for j, (a, b) in enumerate(zip(got, host)):
+                same_state(a, b, f"service {what}: snapshots[{j}] t={ts[j]}")
+            return seconds
+
+        fold_s = snapshots("wire")
+        store.tgi.invalidate_caches()
+        one = store.snapshot(local["t_one"], use_kernel=True)
+        same_state(one, local["one_host"], f"service: snapshot t={local['t_one']}")
+        q0, q1 = local["cc_span"]
+        PlanExecutor._replay_cache.clear()  # the plan must read over the wire
+        t1 = time.perf_counter()
+        plan = store.subgraphs(q0, q1).node_compute(
+            tc.components(), style="temporal", points=local["cc_points"]).run()
+        plan_s = time.perf_counter() - t1
+        if not any("compile: fused" in n for n in plan.notes):
+            fail(f"service: components T=128 not fused: {plan.notes}")
+        for got, want in zip(plan.value, local["components"]):
+            if not np.array_equal(np.asarray(got), np.asarray(want)):
+                fail("service: components T=128 over the wire != the local store's")
+        before_kill = client.stats.failovers
+        cluster.kill(0)
+        client.clear_pool()
+        store.tgi.invalidate_caches()
+        fold_killed_s = snapshots("cell 0 killed")
+        failovers = client.stats.failovers - before_kill
+        if failovers <= 0:
+            fail("service: no failover after cell 0 was killed")
+        launches = dict(ov_ops.LAUNCHES)
+        client.close()
+    if device.type == "cuda" and 0 in launches.values():
+        fail(f"service: a delta_overlay kernel never launched: {launches}")
+    emit(phase="service", cells=3, r=2, backend="file", events=len(local["events"]),
+         T=len(ts), wire_build_seconds=build_s, kernel_fold_seconds=fold_s,
+         components_T128_seconds=plan_s, kernel_fold_seconds_cell0_killed=fold_killed_s,
+         failovers=failovers, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the LM serving path
 # ---------------------------------------------------------------------------
 
 LM_ARCH = "recurrentgemma-9b"
@@ -729,9 +827,17 @@ def kernel_case(name, args, kw, tag, tol=None):
 
 def decomposition_check(name, tag, args, got) -> dict:
     """The redesigned kernels against the plain emulation of their own
-    decomposition: ``overlay_batch``'s pre-pass lists bit for bit against
+    decomposition: ``overlay`` bit for bit against ``overlay_seeded_ref``
+    (its walk: step 1 in full, invalid layers skipped from step 2 on),
+    ``overlay_batch``'s pre-pass lists bit for bit against
     ``layer_lists_ref``, ``rglru_scan`` within RGLRU_TOL of
     ``rglru_chunked_ref`` at the kernel's chunk."""
+    if name == "delta_overlay.overlay":
+        from repro_torch.kernels.delta_overlay import ref as ov_ref
+
+        if max_err(got, ov_ref.overlay_seeded_ref(*args)) != 0:
+            fail(f"{name} ({tag}) != overlay_seeded_ref")
+        return dict(seeded_ref="equal")
     if name == "delta_overlay.overlay_batch":
         from repro_torch.kernels.delta_overlay import ops as ov_ops
         from repro_torch.kernels.delta_overlay import ref as ov_ref
@@ -895,23 +1001,46 @@ def headline_inputs(dev):
     ]]
 
 
-def overlay_batch_edges(dev) -> None:
-    """``overlay_batch`` and its pre-pass, bit for bit against their plain
-    versions, where the main path and the headline cases (all K = 4, all
-    indices in 31 bits) do not go: the generic-K kernel (K = 0, 1, 3, 20,
-    1000), one layer, one timepoint, a column no layer feeds and a layer no
-    timepoint uses, T past one tile; and the 64-bit index kernel, with
-    h * P * S * K = 2^31 + 8,192 attrs (8.6 GB)."""
+def overlay_edges(dev) -> None:
+    """``overlay`` bit for bit against ``overlay_ref`` and
+    ``overlay_seeded_ref`` at the edges of its seed from layer 0 (the
+    stacks ``ref.overlay_edge_stacks`` gives the CPU tests) at K = 0, 1, 4,
+    5 and 20, ragged S = 300, and at K = 4 on attrs that are not 16-byte
+    aligned; then ``overlay_batch`` and its pre-pass, bit for bit against
+    their plain versions, where the main path and the headline cases (all
+    K = 4, all indices in 31 bits) do not go: the generic-K kernel (K = 0,
+    1, 3, 20, 1000), one layer, one timepoint, a column no layer feeds and
+    a layer no timepoint uses, T past one tile; and both folds' 64-bit
+    index kernels, with h * P * S * K = 2^31 + 8,192 attrs (8.6 GB)."""
     from repro_torch.kernels.delta_overlay import ops as ov_ops
     from repro_torch.kernels.delta_overlay import ref as ov_ref
 
+    def single(what, stacks):
+        got = ov_ops.overlay(*stacks)
+        for plain in (ov_ref.overlay_ref, ov_ref.overlay_seeded_ref):
+            if max_err(got, plain(*stacks)) != 0:
+                fail(f"overlay {what} != {plain.__name__}")
+        return dict(case=what, h=stacks[0].shape[0], P=stacks[0].shape[1],
+                    S=stacks[0].shape[2], K=stacks[2].shape[-1])
+
+    t0 = time.perf_counter()
+    singles = [single(f"{name}, K={K}", stacks) for K in (0, 1, 4, 5, 20)
+               for name, stacks in ov_ref.overlay_edge_stacks(K, seed=K, device=dev).items()]
+    v, p, a = ov_ref.overlay_edge_stacks(4, seed=40, device=dev)["h=2"]
+    flat = torch.empty(a.numel() + 1, dtype=torch.int32, device=dev)
+    flat[1:] = a.flatten()
+    singles.append(single("h=2 K=4, attrs 4 bytes past a 16-byte boundary",
+                          (v, p, flat[1:].view(a.shape))))
     g = torch.Generator(device=dev).manual_seed(17)
 
-    def case(h, P, S, K, T, density=0.4):
+    def case(h, P, S, K, T, density=0.4, fold_one=False):
         valid = torch.rand(h, P, S, generator=g, device=dev) < density
         present = (torch.rand(h, P, S, generator=g, device=dev) < 0.7).to(torch.int8)
         attrs = torch.randint(-1, 5, (h, P, S, K), generator=g, device=dev,
                               dtype=torch.int32)
+        if fold_one:
+            singles.append(single(f"64-bit indices, {h * P * S * K} attrs",
+                                  (valid, present, attrs)))
         tmask = (torch.rand(h, T, generator=g, device=dev) < 0.6).to(torch.int8)
         tmask[:, 0] = 0
         if h > 2:
@@ -924,12 +1053,13 @@ def overlay_batch_edges(dev) -> None:
             fail(f"overlay_batch h={h} T={T}: pre-pass lists != layer_lists_ref")
         return dict(h=h, P=P, S=S, K=K, T=T)
 
-    t0 = time.perf_counter()
     shapes = [case(*c) for c in ((1, 1, 1, 4, 1), (3, 2, 33, 4, 1), (6, 2, 777, 3, 5),
                                  (4, 1, 300, 20, 40), (3, 1, 100, 0, 3), (3, 1, 70, 1000, 40),
                                  (9, 1, 5000, 1, 70), (5, 3, 1000, 4, 33))]
-    shapes.append(case(128, 16, 262145, 4, 3, density=0.05))
+    shapes.append(case(128, 16, 262145, 4, 3, density=0.05, fold_one=True))
     torch.cuda.empty_cache()
+    emit(phase="kernel_edges", kernel="delta_overlay.overlay", cases=singles,
+         max_abs_err=0)
     emit(phase="kernel_edges", kernel="delta_overlay.overlay_batch", cases=shapes,
          max_abs_err=0, seconds=time.perf_counter() - t0)
 
@@ -973,7 +1103,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     if args.device == "cpu":  # rehearsal of the main paths, no result
-        main_path(torch.device("cpu"), args.events)
+        service_path(torch.device("cpu"), main_path(torch.device("cpu"), args.events)[1])
         lm_serve(torch.device("cpu"), reduced=True)
         print("chip_smoke: CPU rehearsal only, no result", file=sys.stderr)
         return 2
@@ -1008,7 +1138,9 @@ def main() -> int:
     # 3. the main path on the card
     dev = torch.device("cuda")
     recorder = Recorder()
-    launches = main_path(dev, args.events, recorder)
+    launches, local = main_path(dev, args.events, recorder)
+    service_path(dev, local)
+    del local
     lm_launches = lm_serve(dev, recorder)
     if lm_launches != LM_LAUNCHES:
         fail(f"lm serve launched {lm_launches}, not {LM_LAUNCHES}")
@@ -1039,7 +1171,7 @@ def main() -> int:
                          bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                          library_ms=row["library_ms"], shape=row["shape"],
                          headline=headline))
-    overlay_batch_edges(dev)
+    overlay_edges(dev)
     emit(phase="done", seconds=time.perf_counter() - start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,13 +20,26 @@
 // most of them.
 //
 // overlay_kernel: one thread per slot, consecutive threads on consecutive
-// slots (coalesced int8 loads), any h and K, no padding of S (the last
-// block masks the ragged edge), no shared memory.  Valid and present fold
-// first; then each attribute folds on its own, repeating the present fold,
-// so the accumulator is two scalars whatever K is.  The repeated reads of
-// a slot's layers hit the cache; device memory sees each layer about once.
-// A layer whose valid byte is 0 cannot change the attrs, so its attrs are
-// not read.
+// slots, one walk of the h layers in order with all K attrs in registers
+// (K = 4 compiled in, 8-wide passes otherwise), no padding of S (the last
+// block masks the ragged edge), no shared memory.  The accumulator is
+// layer 0 raw, as _overlay_kernel seeds it: its present and attrs are taken
+// even where its valid byte is 0, and its attrs are not cleared where its
+// present byte is 0.  The batch fold's skip rule (below) does not hold
+// after that seed, so step 1 runs in full (its clear included, valid or
+// not); invalid layers are skipped from step 2 on.  A thread reads each
+// layer's valid byte once and, where it is set, the layer's present byte
+// and its attrs once (one int4 load when K = 4), and stores its outputs
+// straight to device memory (an int4 a slot when K = 4: a warp writes 512
+// contiguous bytes).  With K = 4 the layers go 4 at a time: their valid
+// bytes are loaded together, then the present bytes and attrs of the valid
+// ones, then folded in order, so more bytes are in flight a thread.  The
+// card moves more than the bound counts: L2 fetches 64-byte runs from
+// HBM, so all of `present` and most of an invalid layer's attrs come in,
+// and the time is near what those bytes take.  One layer at a time,
+// staging the outputs, loading every layer, L2::256B hints, two slots a
+// thread and a persistent grid were no faster (tools/overlay_designs.py,
+// PERF.md).
 //
 // overlay_batch: a walk of all h layers for each timepoint, repeated for
 // each attribute, is O(T * h * (K + 1)) steps a slot, where a timepoint
@@ -59,40 +72,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-__global__ void overlay_kernel(const int8_t* __restrict__ valid,
-                               const int8_t* __restrict__ present,
-                               const int32_t* __restrict__ attrs,
-                               int8_t* __restrict__ o_valid,
-                               int8_t* __restrict__ o_present,
-                               int32_t* __restrict__ o_attrs, int h,
-                               long long n, int K) {
-  const long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (s >= n) return;
-  int acc_v = valid[s] != 0;
-  int8_t acc_p = present[s];
-  for (int i = 1; i < h; ++i) {
-    const int vi = valid[i * n + s] != 0;
-    if (vi) acc_p = present[i * n + s];
-    acc_v |= vi;
-  }
-  o_valid[s] = (int8_t)acc_v;
-  o_present[s] = acc_p;
-  for (int k = 0; k < K; ++k) {
-    int8_t p = present[s];
-    int32_t a = attrs[s * K + k];
-    for (int i = 1; i < h; ++i) {
-      const long long off = i * n + s;
-      if (valid[off] != 0) {
-        p = present[off];
-        const int32_t ai = attrs[off * K + k];
-        if (ai != -1) a = ai;
-      }
-      if (p == 0) a = -1;
-    }
-    o_attrs[s * K + k] = a;
-  }
-}
 
 // One warp per timepoint t: lists[t, :counts[t]] = the layers i with
 // tmask[i, t] != 0 in index order, then -1 to the end of the row.
@@ -161,6 +140,90 @@ __device__ void write_runs(E* dst, long long dstride, const E* src, int sstride,
   }
 }
 
+// The attrs k .. k + KC - 1 of the layer slot at `off`, -1 from the
+// `left`-th on (the last pass of a K that KC does not divide); `vec`: K ==
+// 4 and attrs 16-byte aligned, one int4 load.
+template <int KC, typename I>
+__device__ __forceinline__ void load_attrs(const int32_t* __restrict__ attrs,
+                                           I off, int K, int k, int left,
+                                           bool vec, int32_t (&ai)[KC]) {
+  const int32_t* src = attrs + (off * (I)K + (I)k);
+  if (KC == 4 && vec) {
+    const int4 v4 = __ldg(reinterpret_cast<const int4*>(src));
+    ai[0] = v4.x; ai[1] = v4.y; ai[2] = v4.z; ai[3] = v4.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < KC; ++q) ai[q] = q < left ? __ldg(src + q) : -1;
+  }
+}
+
+// A valid layer's step, once its present byte p and attrs ai are in.
+template <int KC>
+__device__ __forceinline__ void merge(int32_t (&acc)[KC], const int32_t (&ai)[KC],
+                                      int8_t p) {
+#pragma unroll
+  for (int q = 0; q < KC; ++q) {
+    if (ai[q] != -1) acc[q] = ai[q];
+    if (p == 0) acc[q] = -1;
+  }
+}
+
+// The single fold.  KC == 4: K = 4 and 16-byte aligned attrs and outputs,
+// an int4 a layer slot; KC == 8: any K, in passes of up to 8 attrs.  I as
+// for the batch kernel below.
+template <int KC, typename I>
+__global__ void __launch_bounds__(256)
+overlay_kernel(const int8_t* __restrict__ valid, const int8_t* __restrict__ present,
+               const int32_t* __restrict__ attrs, int8_t* __restrict__ o_valid,
+               int8_t* __restrict__ o_present, int32_t* __restrict__ o_attrs,
+               int h, I n, int K) {
+  constexpr int G = KC == 4 ? 4 : 1;  // layers whose loads go together
+  if (KC == 4) K = 4;  // known here: one pass, unrolled
+  const I s = (I)blockIdx.x * 256 + (I)threadIdx.x;
+  if (s >= n) return;
+  for (int kb = 0; kb == 0 || kb < K; kb += KC) {
+    int acc_v = __ldg(valid + s) != 0;
+    int8_t acc_p = __ldg(present + s);
+    int32_t acc[KC];
+    load_attrs<KC, I>(attrs, s, K, kb, K - kb, KC == 4, acc);
+    for (int i0 = 1; i0 < h; i0 += G) {
+      bool vi[G];
+      int8_t pi[G];
+      int32_t ai[G][KC];
+#pragma unroll
+      for (int q = 0; q < G; ++q) vi[q] = i0 + q < h && __ldg(valid + (i0 + q) * n + s) != 0;
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        if (!vi[q]) continue;
+        const I off = (I)(i0 + q) * n + s;
+        pi[q] = __ldg(present + off);
+        load_attrs<KC, I>(attrs, off, K, kb, K - kb, KC == 4, ai[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        if (vi[q]) {
+          acc_v = 1;
+          acc_p = pi[q];
+          merge<KC>(acc, ai[q], acc_p);
+        } else if (i0 + q == 1 && acc_p == 0) {  // step 1's clear, layer 1 invalid
+#pragma unroll
+          for (int k = 0; k < KC; ++k) acc[k] = -1;
+        }
+      }
+    }
+    int32_t* dst = o_attrs + (s * (I)K + (I)kb);
+    if (KC == 4) {
+      *reinterpret_cast<int4*>(dst) = make_int4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < KC; ++q)
+        if (kb + q < K) dst[q] = acc[q];
+    }
+    o_valid[s] = (int8_t)acc_v;
+    o_present[s] = acc_p;
+  }
+}
+
 // KC accumulators a pass: KC == 4 is the K = 4 kernel (one pass, unrolled,
 // held to 32 registers for 2048 threads an SM); KC == 8 covers any K in
 // passes of up to 8 attrs.  I indexes the stacks: int when every index fits
@@ -199,20 +262,9 @@ overlay_batch_kernel(const BatchArgs a) {
         if (__ldg(a.valid + off) == 0) continue;
         acc_v = 1;
         acc_p = __ldg(a.present + off);
-        const int32_t* src = a.attrs + (off * (I)a.K + (I)(k0 + kb));
         int32_t ai[KC];
-        if (KC == 4 && a.vec) {
-          const int4 v4 = __ldg(reinterpret_cast<const int4*>(src));
-          ai[0] = v4.x; ai[1] = v4.y; ai[2] = v4.z; ai[3] = v4.w;
-        } else {
-#pragma unroll
-          for (int q = 0; q < KC; ++q) ai[q] = kb + q < kn ? __ldg(src + q) : -1;
-        }
-#pragma unroll
-        for (int q = 0; q < KC; ++q) {
-          if (ai[q] != -1) acc[q] = ai[q];
-          if (acc_p == 0) acc[q] = -1;
-        }
+        load_attrs<KC, I>(a.attrs, off, a.K, k0 + kb, kn - kb, a.vec, ai);
+        merge<KC>(acc, ai, acc_p);
       }
       if (live) {
         int32_t* dst = stage + ls * stride + r * a.kt + kb;
@@ -239,8 +291,6 @@ overlay_batch_kernel(const BatchArgs a) {
   }
 }
 
-constexpr int THREADS = 256;
-
 }  // namespace
 
 extern "C" {
@@ -255,10 +305,25 @@ int overlay_launch(const void* valid, const void* present, const void* attrs,
                    void* o_valid, void* o_present, void* o_attrs, int h,
                    long long n, int K, void* stream) {
   if (h < 1 || n < 1 || K < 0) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-  overlay_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)valid, (const int8_t*)present, (const int32_t*)attrs,
-      (int8_t*)o_valid, (int8_t*)o_present, (int32_t*)o_attrs, h, n, K);
+  const long long blocks = (n + 255) / 256;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const auto v = (const int8_t*)valid;
+  const auto p = (const int8_t*)present;
+  const auto a = (const int32_t*)attrs;
+  const auto ov = (int8_t*)o_valid;
+  const auto op = (int8_t*)o_present;
+  const auto oa = (int32_t*)o_attrs;
+  const bool vec = K == 4 && (((uintptr_t)attrs | (uintptr_t)o_attrs) & 15) == 0;
+  const bool narrow = (long long)h * n * (K > 1 ? K : 1) < (1LL << 31);
+  const dim3 grid((unsigned)blocks);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (vec) {
+    if (narrow) overlay_kernel<4, int><<<grid, 256, 0, st>>>(v, p, a, ov, op, oa, h, (int)n, K);
+    else overlay_kernel<4, long long><<<grid, 256, 0, st>>>(v, p, a, ov, op, oa, h, n, K);
+  } else {
+    if (narrow) overlay_kernel<8, int><<<grid, 256, 0, st>>>(v, p, a, ov, op, oa, h, (int)n, K);
+    else overlay_kernel<8, long long><<<grid, 256, 0, st>>>(v, p, a, ov, op, oa, h, n, K);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 """repro_torch delta_overlay vs the reference: the port's ``overlay`` and
 ``overlay_batch`` on CPU tensors (the plain PyTorch versions the CPU path
-runs) against the reference Pallas kernels in interpret mode, bit for
-bit, over the reference kernel tests' shape grid plus S that is not a
-multiple of the Pallas tile and T > K."""
+runs), and the plain emulations of the CUDA kernels' walks, against the
+reference Pallas kernels in interpret mode, bit for bit, over the
+reference kernel tests' shape grid plus S that is not a multiple of the
+Pallas tile, T > K, and the edges of the single fold's seed from layer 0."""
 import numpy as np
 import pytest
 import torch
@@ -54,6 +55,40 @@ def test_overlay_batch_matches_reference_kernel(h, P, S, K, T):
     want = ref_ops.overlay_batch(valid, present, attrs, tmask, use_pallas=True)
     assert tuple(got[2].shape) == (P, S, T, K)
     _assert_same(got, want)
+
+
+@pytest.mark.parametrize("h,P,S,K", OVERLAY_GRID)
+def test_seeded_walk_matches_reference_kernel(h, P, S, K):
+    """The single-fold kernel's walk (seeded from layer 0, step 1 in full,
+    invalid layers skipped from step 2 on) in plain PyTorch, bit for bit
+    against the reference Pallas kernel in interpret mode and the port's
+    plain fold, on seeded random stacks."""
+    rng = np.random.RandomState(h * 100 + P + 7)
+    valid, present, attrs = _stacks(rng, h, P, S, K)
+    got = ref.overlay_seeded_ref(*(torch.from_numpy(x) for x in (valid, present, attrs)))
+    _assert_same(got, ref_ops.overlay(valid, present, attrs, use_pallas=True))
+    _assert_same(got, [x.numpy() for x in ref.overlay_ref(
+        *(torch.from_numpy(x) for x in (valid, present, attrs)))])
+
+
+_EDGES = list(ref.overlay_edge_stacks(1))
+
+
+@pytest.mark.parametrize("K", [1, 4, 5, 20])
+@pytest.mark.parametrize("case", _EDGES)
+def test_overlay_seed_edges_match_reference_kernel(case, K):
+    """Where the single fold's seed from layer 0 differs from the batch
+    fold's neutral start (h = 1, an invalid layer 0 that is present, a
+    tombstoned layer 0 with attrs followed by a valid layer of attrs -1 or
+    by an invalid one, a present layer 0 kept through a layer 1 of attrs
+    -1), at K = 1, 4, 5 and 20 (two and a half 8-wide passes) and a ragged
+    S: the port's fold and the kernel's walk, bit for bit against the
+    reference Pallas kernel."""
+    stacks = ref.overlay_edge_stacks(K, S=300, seed=K)[case]
+    valid, present, attrs = (x.numpy() for x in stacks)
+    want = ref_ops.overlay(valid, present, attrs, use_pallas=True)
+    _assert_same(ops.overlay(*stacks), want)
+    _assert_same(ref.overlay_seeded_ref(*stacks), want)
 
 
 def _chain(rng, mk, h=4, P=2, S=256, K=3):
