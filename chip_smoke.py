@@ -30,10 +30,18 @@ one JSON line; any failure exits non-zero:
    full width and depth in bf16 with seeded weights (prefill seconds,
    decode tokens/s, parameter bytes, peak memory), a batch-1 check that
    prefill(S-1) + decode_step gives prefill(S)'s last logits, and the
-   reduced config on the card against the CPU's plain versions.  Kernel
-   launch counts are zeroed just before each path and read just after; a
-   kernel of a path that never launched fails the run, and the serve
-   prefill must launch ``flash_attention`` 12 and ``rglru_scan`` 52 times;
+   reduced config on the card against the CPU's plain versions.  Then the
+   LM training path: ``launch.train.run`` on ``recurrentgemma-9b`` at full
+   width cut to 5 layers (float32 masters, bf16 activations, remat
+   "full"), 3 AdamW steps on 2 x 4096 tokens of ``SyntheticLM(seed=0)``
+   (losses, grad norms, seconds per step, peak memory, every parameter's
+   step-0 gradient finite and non-zero), and the reduced config (float32)
+   for 12 steps with a save every 4: a crash at step 8 and a resume give
+   the same losses, and the CPU's plain versions the same within 1e-4.
+   Kernel launch counts are zeroed just before each path and read just
+   after; a kernel of a path that never launched fails the run, the
+   serve prefill must launch ``flash_attention`` 12 and ``rglru_scan`` 52
+   times, the training run 6, 3 (backward), 24 and 12 (backward);
 4. kernels  — each kernel against its plain PyTorch version (bit for
    bit; PageRank within atol=1e-6, rtol=1e-5; attention within 2e-5 in
    float32 and 2e-2 in bf16, RG-LRU within 2e-5, the reference's kernel
@@ -53,7 +61,17 @@ one JSON line; any failure exits non-zero:
    also held against the plain emulation of their decomposition
    (``overlay`` bit for bit against ``overlay_seeded_ref``,
    ``overlay_batch``'s pre-pass layer lists against ``layer_lists_ref``,
-   RG-LRU within 2e-5 of ``rglru_chunked_ref``);
+   RG-LRU within 2e-5 of ``rglru_chunked_ref``); the backward kernels
+   (``flash_attention.bwd``, ``rglru_scan.bwd``) on the inputs the train
+   steps gave them and at headline shapes, against ``attention_bwd_ref``,
+   ``rglru_bwd_ref`` and ``rglru_bwd_chunked_ref``, with limits that scale
+   with each gradient's largest plain value (BWD_TOL: 2e-5 in float32,
+   one bf16 step in bf16), each row printing that value beside its error;
+   each backward case also shows that those limits reject a kernel with a
+   planted fault (dQ zeroed, the delta term dropped; db zeroed, the carry
+   between chunks dropped; the last two only reported on the train
+   steps' inputs), and the forward's row log-sum-exp is held
+   against ``lse_ref``;
    device times from
    CUDA events, beside the plain version's, one library call's where
    there is one, and the bound: the larger of the bytes the function
@@ -69,7 +87,7 @@ Phase 1 also prints ``nvidia-smi``'s own line.  The line before the
 last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  ``--device cpu --events N`` rehearses
 phase 3 on the CPU with the plain versions (the wire cluster included,
-the LM path at its reduced config) and prints no result.
+the LM paths at their reduced config) and prints no result.
 """
 from __future__ import annotations
 
@@ -101,10 +119,24 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 RGLRU_TOL = dict(atol=2e-5, rtol=2e-5)
+# the backward kernels' outputs are gradients, whose size follows the loss
+# and not the inputs (1e-4 and below on the full-width train step), so
+# their atol is a share of each output's largest plain value (``scaled``):
+# in float32 the reference's 2e-5; in bf16 one bf16 step (2^-7) at the
+# element (the kernel's f32 sum rounding the other way) and one at the
+# largest value
+BWD_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+           torch.bfloat16: dict(atol=2.0 ** -7, rtol=2.0 ** -7)}
+LSE_TOL = dict(atol=1e-4, rtol=1e-4)  # f32 row log-sum-exp, sums in another order
 # the mask check (q = 0, v = key-position bits): bf16 rounds its outputs by
 # at most 2^-9, one key more or less in a window of 64 moves a bit column
 # by at least 0.5 / 65
 MASK_TOL = dict(atol=2.0 ** -8, rtol=0.0)
+
+
+def scaled(tol, want) -> dict:
+    """``tol`` with its atol taken as a share of max |want|."""
+    return dict(atol=tol["atol"] * float(want.float().abs().max()), rtol=tol["rtol"])
 
 
 def emit(**obj):
@@ -195,7 +227,7 @@ def _keep(a):
     (an expanded KV head) kept at stride 0 over one copied slice."""
     if not torch.is_tensor(a):
         return a
-    base = a
+    base = a.detach()
     for d, (n, s) in enumerate(zip(a.shape, a.stride())):
         if s == 0 and n > 1:
             base = base.narrow(d, 0, 1)
@@ -520,9 +552,12 @@ def lm_serve(device, recorder=None, reduced=False):
             mod.LAUNCHES[k] = 0
     gen, stats = serve_mod.serve(LM_ARCH, LM_BATCH, prompt, LM_GEN, reduced=reduced,
                                  seed=0, device=device, params=model)
-    launches = {name: sum(mod.LAUNCHES.values()) for name, mod in kernel_ops.items()}
+    launches = {"flash_attention": fa_ops.LAUNCHES["flash_attention"],
+                "rglru_scan": rg_ops.LAUNCHES["rglru"]}
     if recorder is not None:
         recorder.restore()
+    if any(mod.LAUNCHES["bwd"] for mod in kernel_ops.values()):
+        fail("lm serve launched a backward kernel")
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
     if gen.shape != (LM_BATCH, LM_GEN) or not ((gen >= 0) & (gen < cfg.vocab_size)).all():
         fail(f"lm serve: tokens {gen.shape} outside [0, {cfg.vocab_size})")
@@ -586,6 +621,181 @@ def lm_reduced_card_vs_cpu(device):
             err = max(err, float((got - want).abs().max()))
     emit(phase="main_path", check="lm reduced card vs cpu", layers=cfg.n_layers,
          max_abs_err=err, tol=LM_REDUCED_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: the LM training path
+# ---------------------------------------------------------------------------
+
+# full width, depth cut to 5 layers (2 remainder recurrent layers and one
+# (rec, rec, attn) unit): 2,049,093,632 parameters at 16 bytes each (f32
+# parameter, gradient and two moments) are 32.8 GB; the 38 layers would
+# need 137 GB.  f32 masters, bf16 activations, remat="full".
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 5, 2, 4096, 3
+# per run: under remat each layer's forward runs twice (forward and the
+# recompute in the backward pass), its backward once
+TRAIN_LAUNCHES = {"flash_attention": 2 * TRAIN_STEPS, "flash_attention.bwd": TRAIN_STEPS,
+                  "rglru_scan": 8 * TRAIN_STEPS, "rglru_scan.bwd": 4 * TRAIN_STEPS}
+# the reduced config (float32, remat "none"): 12 steps, a save every 4
+REDUCED_TRAIN = dict(steps=12, batch=4, seq=64, checkpoint_every=4, seed=0, log_every=100)
+REDUCED_TRAIN_LAUNCHES = {"flash_attention": 12, "flash_attention.bwd": 12,
+                          "rglru_scan": 48, "rglru_scan.bwd": 48}
+RESUME_TOL = dict(rtol=1e-5, atol=1e-6)  # the reference's crash/resume test
+TRAIN_CARD_VS_CPU_RTOL = 1e-4  # f32 losses, card kernels vs CPU plain versions
+
+
+def _train_kernels(recorder, tag):
+    """Zero the LM kernels' launch counts and, with a recorder, record the
+    inputs of the forward and backward wrappers under ``tag``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+
+    for mod in (fa_ops, rg_ops):
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    if recorder is not None:
+        recorder.tag = tag
+        recorder.wrap(fa_ops, "flash_attention", "flash_attention")
+        recorder.wrap(fa_ops, "flash_attention_bwd", "flash_attention.bwd")
+        recorder.wrap(rg_ops, "rglru", "rglru_scan")
+        recorder.wrap(rg_ops, "rglru_bwd", "rglru_scan.bwd")
+
+    def read():
+        return {"flash_attention": fa_ops.LAUNCHES["flash_attention"],
+                "flash_attention.bwd": fa_ops.LAUNCHES["bwd"],
+                "rglru_scan": rg_ops.LAUNCHES["rglru"], "rglru_scan.bwd": rg_ops.LAUNCHES["bwd"]}
+
+    return read
+
+
+def lm_train(device, recorder=None, reduced=False):
+    """``launch.train.run`` on ``LM_ARCH`` at full width, cut to
+    TRAIN_LAYERS layers, with seeded weights: TRAIN_STEPS AdamW steps on
+    TRAIN_BATCH x TRAIN_SEQ tokens of ``SyntheticLM(seed=0)``.  AdamW's
+    ``update`` is observed as it is called: each parameter's gradient norm
+    before the clip (all finite and non-zero in step 0: no kernel cut the
+    gradient) and the time each step ends.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = get_config(LM_ARCH).replace(n_layers=TRAIN_LAYERS)
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    if reduced:  # the CPU rehearsal
+        cfg, batch, seq = get_config(LM_ARCH).reduced(), 2, 64
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, seed=0, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    steps = []
+    orig = adamw.update
+
+    def observed_update(grads, state, params, ocfg):
+        norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                             for g in grads.values()])
+        out = orig(grads, state, params, ocfg)
+        sync(device)
+        steps.append(dict(end=time.perf_counter(), names=list(grads), norms=norms.cpu(),
+                          grad_norm=float(out[2]["grad_norm"]), lr=float(out[2]["lr"])))
+        return out
+
+    read = _train_kernels(recorder, "main path")
+    adamw.update = observed_update
+    t0 = time.perf_counter()
+    try:
+        _, opt_state, losses = train_mod.run(LM_ARCH, steps=TRAIN_STEPS, batch=batch, seq=seq,
+                                             reduced=reduced, seed=0, log_every=1,
+                                             device=device, params=model)
+    finally:
+        adamw.update = orig
+        if recorder is not None:
+            recorder.restore()
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    ends = [t0] + [st["end"] for st in steps]
+    step_s = [b - a for a, b in zip(ends, ends[1:])]
+    first = steps[0]
+    bad = [n for n, g in zip(first["names"], first["norms"].tolist())
+           if not (math.isfinite(g) and g > 0)]
+    emit(phase="main_path", check="lm train", arch=LM_ARCH, reduced=reduced,
+         layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+         param_dtype=cfg.param_dtype, dtype=cfg.dtype, remat=cfg.remat, batch=batch,
+         seq=seq, steps=len(losses), losses=losses,
+         grad_norms=[st["grad_norm"] for st in steps], lrs=[st["lr"] for st in steps],
+         init_seconds=init_s, first_step_seconds=step_s[0], step_seconds=step_s[1:],
+         peak_memory_bytes=peak, launches=launches,
+         step0_params_with_gradient=len(first["names"]) - len(bad),
+         step0_params_without_finite_nonzero_gradient=bad,
+         step0_grad_norm_min=float(first["norms"].min()),
+         step0_grad_norm_max=float(first["norms"].max()))
+    del model, opt_state
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"lm train: losses {losses}")
+    if len(steps) != TRAIN_STEPS or len(first["names"]) != len(first["norms"]) or bad:
+        fail(f"lm train: parameters without a finite non-zero gradient in step 0: {bad}")
+    if device.type == "cuda" and launches != TRAIN_LAUNCHES:
+        fail(f"lm train launched {launches}, not {TRAIN_LAUNCHES}")
+    return launches
+
+
+def lm_train_reduced(device, recorder=None):
+    """The reduced config (float32, so the float32 attention kernel and its
+    backward run) for 12 steps on ``device``, saving every 4 steps to a
+    checkpoint store: the same losses after a crash at step 8 and a resume
+    from the step-7 save, and the same losses as the plain versions on
+    the CPU from the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+    from repro_torch.models import lm
+    from repro_torch.storage.checkpoint import CheckpointConfig, CheckpointStore
+    from repro_torch.storage.kvstore import DeltaStore
+
+    cfg = get_config(LM_ARCH).reduced()
+    card = lm.init(cfg, seed=3, device=device)
+    state = {k: v.detach().to("cpu", copy=True) for k, v in card.state_dict().items()}
+
+    def store():
+        return CheckpointStore(DeltaStore(m=2, r=1, backend="mem"),
+                               CheckpointConfig(snapshot_every=2))
+
+    straight = store()
+    read = _train_kernels(recorder, "reduced train f32")
+    t0 = time.perf_counter()
+    try:
+        _, _, losses = run(LM_ARCH, **REDUCED_TRAIN, store=straight, device=device,
+                           params=card)
+    finally:
+        if recorder is not None:
+            recorder.restore()
+    seconds = time.perf_counter() - t0
+    launches = read()
+    crashed = store()
+    _, _, before = run(LM_ARCH, **REDUCED_TRAIN, store=crashed, stop_after=8, device=device,
+                       params=lm.from_state_dict(cfg, state, device=device))
+    _, _, after = run(LM_ARCH, **REDUCED_TRAIN, store=crashed, resume=True, device=device,
+                      params=lm.from_state_dict(cfg, state, device=device))
+    _, _, host = run(LM_ARCH, **REDUCED_TRAIN, device="cpu", params=state)
+    resumed = np.asarray(before + after)
+    resume_err = float(np.abs(resumed - losses).max())
+    cpu_rel = float((np.abs(np.asarray(host) - losses) / np.abs(host)).max())
+    emit(phase="main_path", check="lm train reduced", layers=cfg.n_layers, dtype=cfg.dtype,
+         **{k: v for k, v in REDUCED_TRAIN.items() if k != "log_every"},
+         saves=[e["step"] for e in straight.saves],
+         checkpoint_bytes=straight.storage_cost()["bytes_written"], losses=losses,
+         resumed_losses=resumed.tolist(), resume_max_abs_diff=resume_err,
+         cpu_losses=host, card_vs_cpu_max_rel_diff=cpu_rel, seconds=seconds,
+         launches=launches)
+    if not np.allclose(resumed, losses, **RESUME_TOL):
+        fail(f"lm train reduced: crash/resume losses differ by {resume_err}")
+    if not cpu_rel <= TRAIN_CARD_VS_CPU_RTOL:
+        fail(f"lm train reduced: card vs CPU losses differ by {cpu_rel} (relative)")
+    if device.type == "cuda" and launches != REDUCED_TRAIN_LAUNCHES:
+        fail(f"lm train reduced launched {launches}, not {REDUCED_TRAIN_LAUNCHES}")
 
 
 # ---------------------------------------------------------------------------
@@ -721,11 +931,25 @@ def attention_work(q, k, v, q_pos, k_pos, causal=True, window=0) -> tuple:
     return 4 * D * pairs * B * H, nbytes, pairs * B * H
 
 
-def kernel_case(name, args, kw, tag, tol=None):
+def attention_bwd_work(q, k, v, q_pos, k_pos, o, lse, do, causal=True, window=0) -> tuple:
+    """Operations and bytes the attention backward needs on these inputs:
+    10 D per (query, key) pair the masks let through (recomputing S, dP,
+    and the dV, dK and dQ products), for every (b, h); q, o, dO and dQ,
+    the distinct elements of k and v, and every head's dK and dV moved
+    once, lse and the positions read once."""
+    _, fwd_bytes, pairs = attention_work(q, k, v, q_pos, k_pos, causal=causal, window=window)
+    B, H, Sq, D = q.shape
+    nbytes = fwd_bytes + (2 * q.numel() + 2 * B * H * k.shape[2] * D) * q.element_size() \
+        + 4 * lse.numel()
+    return 10 * D * pairs, nbytes, pairs
+
+
+def kernel_case(name, args, kw, tag, tol=None, recorded=False):
     """Run one kernel on ``args`` against its plain version: bit-identical
     (PageRank, attention, RG-LRU: within their tolerance, or ``tol``, and
     the same bits on a second run) or fail; returns the times, bound and
-    error."""
+    error.  ``recorded``: ``args`` are inputs a main path gave the kernel
+    (see ``planted_faults``)."""
     from repro_torch.kernels.delta_overlay import ops as ov_ops
     from repro_torch.kernels.delta_overlay import ref as ov_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -739,7 +963,7 @@ def kernel_case(name, args, kw, tag, tol=None):
     from repro_torch.kernels.temporal_pagerank import ops as pr_ops
     from repro_torch.kernels.temporal_pagerank import ref as pr_ref
 
-    library, peak = None, TF32_OPS_PER_S
+    library, peak, grad = None, TF32_OPS_PER_S, False
     if name == "delta_overlay.overlay":
         kern, plain = ov_ops.overlay, ov_ref.overlay_ref
         ops, nbytes = 0, overlay_bytes(args, batch=False)
@@ -789,6 +1013,33 @@ def kernel_case(name, args, kw, tag, tol=None):
         def library():  # one fused PyTorch call, timed only
             return torch.nn.functional.scaled_dot_product_attention(
                 *args[:3], attn_mask=mask)
+    elif name == "flash_attention.bwd":
+        q = args[0]
+        kern, grad = fa_ops.flash_attention_bwd, True
+        tol = tol or BWD_TOL[q.dtype]
+
+        def plain(*a, **k):
+            return tuple(g.to(a[0].dtype) for g in fa_ref.attention_bwd_ref(*a, **k))
+
+        ops, nbytes, pairs = attention_bwd_work(*args, **kw)
+        peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+        B, H, Sq, D = q.shape
+        shape = dict(B=B, H=H, Sq=Sq, Sk=args[1].shape[2], D=D, dtype=str(q.dtype),
+                     kv_head_stride=args[1].stride(1), pairs=pairs, **kw)
+        mask = fa_ref.position_mask(args[3], args[4], **kw)
+        leaves = [t.detach().requires_grad_() for t in args[:3]]
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+        def library():  # SDPA's backward with the boolean mask, timed only
+            return torch.autograd.grad(sdpa_out, leaves, args[7], retain_graph=True)
+    elif name == "rglru_scan.bwd":
+        kern, plain, grad = rg_ops.rglru_bwd, rg_ref.rglru_bwd_ref, True
+        tol = tol or BWD_TOL[torch.float32]
+        B, S, W = args[0].shape
+        # g = dh + e, e = a g, a = exp(log_a), dlog_a = g a h_prev: ~5 a step;
+        # log_a, h, dh read and dlog_a, db written once
+        ops, nbytes, peak = 5 * args[0].numel(), 5 * args[0].numel() * 4, FP32_OPS_PER_S
+        shape = dict(B=B, S=S, W=W, chunk=rg_ops.CHUNK)
     else:
         kern, plain, tol = rg_ops.rglru, rg_ref.rglru_ref, RGLRU_TOL
         B, S, W = args[0].shape
@@ -804,16 +1055,25 @@ def kernel_case(name, args, kw, tag, tol=None):
         err = max_err(got, want)
         if err != 0:
             fail(f"{name} ({tag}) differs from its plain version: max err {err}")
+        extra = {}
     else:
-        (g,), (w,) = got, want
-        if g.dtype != w.dtype or g.shape != w.shape:
-            fail(f"{name} ({tag}): {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
-        err = float((g.float() - w.float()).abs().max())
-        if not torch.allclose(g, w, **tol):
-            fail(f"{name} ({tag}) outside {tol} of its plain version: max err {err}")
-        if not torch.equal(kern(*args, **kw), g):
+        err, lims = 0.0, [scaled(tol, w) if grad else tol for w in want]
+        for g, w, lim in zip(got, want, lims):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{name} ({tag}): {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
+            err = max(err, float((g.float() - w.float()).abs().max()))
+            if not torch.allclose(g.float(), w.float(), **lim):
+                fail(f"{name} ({tag}) outside {lim} of its plain version: max err {err}")
+        again = kern(*args, **kw)
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
             fail(f"{name} ({tag}): two runs differ")
-    extra = decomposition_check(name, tag, args, got)
+        extra = dict(max_abs_ref=[float(w.float().abs().max()) for w in want])
+        if grad:
+            extra.update(limits=[lim["atol"] for lim in lims],
+                         planted=planted_faults(name, tag, args, kw, got, want, lims, plain,
+                                                recorded))
+    extra.update(decomposition_check(name, tag, args, kw, got))
     ops_ms, bytes_ms = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms > bytes_ms else "bytes"
@@ -825,13 +1085,55 @@ def kernel_case(name, args, kw, tag, tol=None):
     return row
 
 
-def decomposition_check(name, tag, args, got) -> dict:
+def planted_faults(name, tag, args, kw, got, want, lims, plain, recorded) -> dict:
+    """What a backward kernel with a known fault would return, each held
+    against the plain version under the same limits.  A zeroed output (dQ;
+    db) must be rejected on every input.  A fault of the algorithm (the
+    attention's delta term dropped: the plain version given O = 0, so
+    delta = rowsum(dO * O) = 0; past one chunk, the RG-LRU's carry between
+    chunks dropped: g restarts from dh at each chunk's end) changes the
+    output by as much as the inputs let that term weigh, so it must be
+    rejected at the headline shapes, whose inputs are drawn to make it
+    weigh, and is only reported on the inputs a main path recorded (on
+    the full-width train step, dropping the carry moves db by ~1e-5 of its
+    largest value).
+    Returns each fault's max abs error and whether it was rejected."""
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+
+    if name == "flash_attention.bwd":
+        faults = {"dQ zeroed": (torch.zeros_like(got[0]),) + got[1:],
+                  "delta dropped": plain(*args[:5], torch.zeros_like(args[5]), *args[6:], **kw)}
+    else:
+        log_a, h, dh = args
+        faults = {"db zeroed": (got[0], torch.zeros_like(got[1]))}
+        if log_a.shape[1] > rg_ops.CHUNK:
+            cut = log_a.clone()
+            cut[:, rg_ops.CHUNK::rg_ops.CHUNK] = -torch.inf
+            _, g = rg_ref.rglru_bwd_ref(cut, h, dh)
+            h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+            faults["carry dropped"] = (g * torch.exp(log_a) * h_prev, g)
+    out = {}
+    for fault, outs in faults.items():
+        err = max(float((o.float() - w.float()).abs().max()) for o, w in zip(outs, want))
+        rejected = not all(torch.allclose(o.float(), w.float(), **lim)
+                           for o, w, lim in zip(outs, want, lims))
+        out[fault] = dict(max_abs_err=err, rejected=rejected)
+        if not rejected and ("zeroed" in fault or not recorded):
+            fail(f"{name} ({tag}): a kernel with '{fault}' would pass the limits {lims} "
+                 f"(its max err {err})")
+    return out
+
+
+def decomposition_check(name, tag, args, kw, got) -> dict:
     """The redesigned kernels against the plain emulation of their own
     decomposition: ``overlay`` bit for bit against ``overlay_seeded_ref``
     (its walk: step 1 in full, invalid layers skipped from step 2 on),
     ``overlay_batch``'s pre-pass lists bit for bit against
-    ``layer_lists_ref``, ``rglru_scan`` within RGLRU_TOL of
-    ``rglru_chunked_ref`` at the kernel's chunk."""
+    ``layer_lists_ref``, ``rglru_scan`` and its backward within RGLRU_TOL
+    of ``rglru_chunked_ref`` / ``rglru_bwd_chunked_ref`` at the kernel's
+    chunk; and the attention backward's input ``lse`` (the forward
+    kernel's) within LSE_TOL of ``lse_ref``, ``-inf`` on the same rows."""
     if name == "delta_overlay.overlay":
         from repro_torch.kernels.delta_overlay import ref as ov_ref
 
@@ -856,6 +1158,29 @@ def decomposition_check(name, tag, args, got) -> dict:
         if not torch.allclose(got[0], want, **RGLRU_TOL):
             fail(f"{name} ({tag}) outside {RGLRU_TOL} of rglru_chunked_ref: {err}")
         return dict(chunked_ref_max_abs_err=err)
+    if name == "rglru_scan.bwd":
+        from repro_torch.kernels.rglru_scan import ops as rg_ops
+        from repro_torch.kernels.rglru_scan import ref as rg_ref
+
+        want = rg_ref.rglru_bwd_chunked_ref(*args, rg_ops.CHUNK)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        lims = [scaled(BWD_TOL[torch.float32], w) for w in want]
+        if not all(torch.allclose(g, w, **lim) for g, w, lim in zip(got, want, lims)):
+            fail(f"{name} ({tag}) outside {lims} of rglru_bwd_chunked_ref: {err}")
+        return dict(chunked_ref_max_abs_err=err)
+    if name == "flash_attention.bwd":
+        # the forward kernel's log-sum-exp the backward was given
+        from repro_torch.kernels.flash_attention import ref as fa_ref
+
+        q, k, _, q_pos, k_pos, _, lse, _ = args
+        want = fa_ref.lse_ref(q, k, q_pos, k_pos, **kw)
+        finite = torch.isfinite(want)
+        if not torch.equal(torch.isfinite(lse), finite):
+            fail(f"{name} ({tag}): the forward's lse is -inf on other rows than lse_ref's")
+        err = float((lse[finite] - want[finite]).abs().max()) if finite.any() else 0.0
+        if not torch.allclose(lse[finite], want[finite], **LSE_TOL):
+            fail(f"{name} ({tag}): the forward's lse outside {LSE_TOL} of lse_ref: {err}")
+        return dict(lse_max_abs_err=err, rows_without_key=int((~finite).sum()))
     return {}
 
 
@@ -984,7 +1309,44 @@ def headline_inputs(dev):
                weighted(2, 4000, binary=(1,)))]
     dense = [(k, tag, a) for tag, a in dense
              for k in ("temporal_pagerank.pagerank", "temporal_cc.cc")]
-    return lm + [(k, tag, a, {}, None) for k, tag, a in dense + [
+    # the backward kernels, from a generator of their own (the cases above
+    # get the inputs they had without these); o and lse from the forward
+    # kernels, as the training path gives them
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+
+    gb = torch.Generator(device=dev).manual_seed(23)
+
+    def attention_bwd(B, H, S, D, window, dtype, holes=False, shared_kv=False):
+        """Causal; ``holes``: every fifth key a hole and query 0 with no
+        key; ``shared_kv``: one KV head expanded at stride 0."""
+        q = (torch.randn(B, H, S, D, generator=gb, device=dev) * 0.5).to(dtype)
+        k, v = ((torch.randn(B, 1 if shared_kv else H, S, D, generator=gb, device=dev) * 0.5)
+                .to(dtype).expand(B, H, S, D) for _ in range(2))
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        q_pos, k_pos = pos.clone(), pos
+        if holes:
+            k_pos = torch.where(pos % 5 == 2, -1, pos)
+            q_pos[0] = -1
+        do = (torch.randn(B, H, S, D, generator=gb, device=dev) * 0.5).to(dtype)
+        o, lse = fa_ops.flash_attention_lse(q, k, v, q_pos, k_pos, causal=True, window=window)
+        tag = f"B={B} H={H} S={S} D={D} {str(dtype)[6:]} causal window={window}" \
+            + (" holes, a query with no key" if holes else "") \
+            + (" KV head stride 0" if shared_kv else "")
+        return ("flash_attention.bwd", tag, [q, k, v, q_pos, k_pos, o, lse, do],
+                dict(causal=True, window=window), None)
+
+    def rglru_bwd(B, S, W):
+        la = -torch.rand(B, S, W, generator=gb, device=dev) * 0.5
+        x, dh = (torch.randn(B, S, W, generator=gb, device=dev) for _ in range(2))
+        return ("rglru_scan.bwd", f"B={B} S={S} W={W}", [la, rg_ops.rglru(la, x), dh], {}, None)
+
+    bwd = [attention_bwd(1, 2, 300, 256, 128, f32),
+           attention_bwd(1, 4, 2048, 256, 1024, f32, shared_kv=True),
+           attention_bwd(2, 4, 700, 128, 64, bf16, holes=True, shared_kv=True),
+           attention_bwd(1, 2, 200, 64, 0, bf16, holes=True),
+           rglru_bwd(1, 4097, 4096), rglru_bwd(2, 33, 64), rglru_bwd(1, 130, 96)]
+    return lm + bwd + [(k, tag, a, {}, None) for k, tag, a in dense + [
         ("delta_overlay.overlay", "h=8 P=16 S=65536 K=4", stacks(8, 16, 65536, 4)),
         ("delta_overlay.overlay", "h=8 P=16 S=65537 K=4", stacks(8, 16, 65537, 4)),
         ("delta_overlay.overlay_batch", "h=8 P=16 S=65536 K=4 T=32",
@@ -1086,6 +1448,14 @@ SOURCES = {
     "rglru_scan": (
         "src/repro_torch/kernels/rglru_scan/rglru_scan.cu",
         "src/repro/kernels/rglru_scan/rglru_scan.py:45"),
+    # the port's own backward kernels: the reference differentiates the
+    # functions of these Pallas kernels by jnp autodiff
+    "flash_attention.bwd": (
+        "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:67"),
+    "rglru_scan.bwd": (
+        "src/repro_torch/kernels/rglru_scan/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan/rglru_scan.py:45"),
 }
 
 
@@ -1105,6 +1475,8 @@ def main() -> int:
     if args.device == "cpu":  # rehearsal of the main paths, no result
         service_path(torch.device("cpu"), main_path(torch.device("cpu"), args.events)[1])
         lm_serve(torch.device("cpu"), reduced=True)
+        lm_train(torch.device("cpu"), reduced=True)
+        lm_train_reduced(torch.device("cpu"))
         print("chip_smoke: CPU rehearsal only, no result", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1147,6 +1519,10 @@ def main() -> int:
     launches.update(lm_launches)
     lm_reduced_card_vs_cpu(dev)
     torch.cuda.empty_cache()  # the 17 GB model is gone
+    train_launches = lm_train(dev, recorder)
+    launches.update({k: v for k, v in train_launches.items() if k.endswith(".bwd")})
+    lm_train_reduced(dev, recorder)
+    torch.cuda.empty_cache()  # the 33 GB training state is gone
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"kernels of the main path never launched: {missing}")
@@ -1158,11 +1534,12 @@ def main() -> int:
         inputs = recorder.inputs.get((kname, "main path"))
         if inputs is None:
             fail(f"no main-path inputs recorded for {kname}")
-        row = kernel_case(kname, *inputs, "main path")
-        others = [(tag, a, kw, None) for (n, tag), (a, kw) in recorder.inputs.items()
+        row = kernel_case(kname, *inputs, "main path", recorded=True)
+        others = [(tag, a, kw, None, True) for (n, tag), (a, kw) in recorder.inputs.items()
                   if n == kname and tag != "main path"]
-        others += [(tag, a, kw, tol) for n, tag, a, kw, tol in headlines if n == kname]
-        headline = {tag: kernel_case(kname, a, kw, tag, tol) for tag, a, kw, tol in others}
+        others += [(tag, a, kw, tol, False) for n, tag, a, kw, tol in headlines if n == kname]
+        headline = {tag: kernel_case(kname, a, kw, tag, tol, rec)
+                    for tag, a, kw, tol, rec in others}
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=launches[kname],
                          max_abs_err=max([row["max_abs_err"]] + [

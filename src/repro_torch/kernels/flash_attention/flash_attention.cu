@@ -116,6 +116,7 @@ struct Params {
   const float* k;
   const float* v;
   float* o;
+  float* lse;  // (B, H, Sq) or null
   const int* q_pos;
   const int* k_pos;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
@@ -300,6 +301,10 @@ __global__ void __launch_bounds__(THREADS, 1) fa_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < MAX_DC; ++j)
       if (j < DC) ob[(long long)(q0 + r) * p.o_ss + tx + 16 * j] = o[i][j] / l;
+    // the row's log-sum-exp, -inf for a row with no key
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((size_t)b * gridDim.y + h) * p.Sq + q0 + r] =
+          l_s[r] > 0.f ? m_s[r] + logf(l_s[r]) : neg_inf();
   }
 }
 
@@ -318,9 +323,11 @@ constexpr int CONSUMERS = 2;                    // warpgroups of 64 query rows
 constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
 constexpr int ROW = 128;                        // bytes of a swizzled row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   __nv_bfloat16* o;
+  float* lse;  // (B, H, Sq) or null
   const int* q_pos;
   const int* k_pos;
   long long o_sb, o_sh, o_ss;
@@ -696,6 +703,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
+    // the rows' log-sum-exp in natural units (m is in log2 units), -inf
+    // for a row with no key
+    if (p.lse != nullptr && quad == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + r0 + 8 * r;
+        if (row < p.Sq)
+          p.lse[((size_t)b * gridDim.y + h) * p.Sq + row] =
+              l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : neg_inf();
+      }
+    }
     // O / l in bf16 goes to this warpgroup's own rows of the Q tile (its S
     // products are done; the other warpgroup reads only its own rows), in
     // Q's swizzled layout, then out to device memory 16 bytes a thread,
@@ -780,6 +798,338 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// Backward: CUDA-core kernels, float32 or bfloat16 inputs
+// ---------------------------------------------------------------------------
+
+namespace bwd {
+
+constexpr int BQ = 32;        // queries of a tile
+constexpr int BK = 32;        // keys of a tile
+constexpr int THREADS = 256;  // 8 warps
+constexpr int MAX_C = 8;      // output columns d = lane + 32 c, c < D / 32 rounded up
+constexpr int P_LD = BK + 4;  // row stride of the P / dS tiles (16-byte rows)
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;    // (B, H, Sq)
+  float* delta;        // (B, H, Sq): rowsum(dO * O)
+  void* dq;            // (B, H, Sq, D) contiguous, the inputs' type
+  void* dk;            // (B, H, Sk, D) contiguous
+  void* dv;            // (B, H, Sk, D) contiguous
+  const int* q_pos;
+  const int* k_pos;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, g_sb, g_sh,
+      g_ss;
+  int H, Sq, Sk, D, causal, window;
+  float scale;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ bool allowed(long long qp, long long kp, int causal, int window) {
+  return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+}
+
+size_t smem_bytes(int D) {
+  return sizeof(float) * (4 * (size_t)BQ * (D + 4) + 2 * BQ * P_LD + 2 * BQ) +
+         sizeof(int) * (BQ + BK);
+}
+
+// delta[b, h, i] = sum_d dO[i, d] * O[i, d]: one warp a row
+template <typename T>
+__global__ void __launch_bounds__(THREADS) delta_kernel(const Params p) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i = blockIdx.x * (THREADS / 32) + warp, h = blockIdx.y, b = blockIdx.z;
+  if (i >= p.Sq) return;
+  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh + i * p.o_ss;
+  const T* g = static_cast<const T*>(p.dout) + b * p.g_sb + h * p.g_sh + i * p.g_ss;
+  float acc = 0.f;
+  for (int d = lane; d < p.D; d += 32) acc = fmaf(to_f32(o[d]), to_f32(g[d]), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) p.delta[((size_t)b * p.H + h) * p.Sq + i] = acc;
+}
+
+// rows [r0, r0 + n) of a (., D) tile with element stride ss into smem rows
+// of stride ld, as float32; rows past n are zero
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, long long ss, int r0,
+                                          int n, int D) {
+  for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
+    const int r = i / D, d = i % D;
+    dst[r * ld + d] = r < n ? to_f32(src[(long long)(r0 + r) * ss + d]) : 0.f;
+  }
+}
+
+// S = Q K^T and dP = dO V^T of one (32-query, 32-key) tile pair, then
+// P = exp(scale * S - lse) under the masks and dS = P (dP - delta); thread
+// (q = tid / 8, kk = tid % 8) owns keys kk + 8 j, so the 8 threads of a
+// quarter warp read 8 different K rows (conflict-free with the padded
+// stride) and one Q row (a broadcast).  Writes P and dS at ps[q * P_LD +
+// k] and ds[q * ds_q + k * ds_k].
+__device__ __forceinline__ void tile_p_ds(const float* Qs, const float* dOs, const float* Ks,
+                                          const float* Vs, int ld, const float* lse_s,
+                                          const float* dl_s, const int* qpos_s,
+                                          const int* kpos_s, int nq, const Params& p, float* ps,
+                                          float* ds, int ds_q, int ds_k) {
+  const int q = threadIdx.x / 8, kk = threadIdx.x % 8;
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int d = 0; d < p.D; d += 4) {
+    const float4 qv = *reinterpret_cast<const float4*>(Qs + q * ld + d);
+    const float4 gv = *reinterpret_cast<const float4*>(dOs + q * ld + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 kv = *reinterpret_cast<const float4*>(Ks + (kk + 8 * j) * ld + d);
+      const float4 vv = *reinterpret_cast<const float4*>(Vs + (kk + 8 * j) * ld + d);
+      s[j] = fmaf(qv.x, kv.x, fmaf(qv.y, kv.y, fmaf(qv.z, kv.z, fmaf(qv.w, kv.w, s[j]))));
+      dp[j] = fmaf(gv.x, vv.x, fmaf(gv.y, vv.y, fmaf(gv.z, vv.z, fmaf(gv.w, vv.w, dp[j]))));
+    }
+  }
+  const long long qp = qpos_s[q];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = kk + 8 * j;
+    const bool ok = q < nq && allowed(qp, kpos_s[k], p.causal, p.window);
+    const float pr = ok ? expf(s[j] * p.scale - lse_s[q]) : 0.f;
+    ps[q * P_LD + k] = pr;
+    ds[q * ds_q + k * ds_k] = pr * (dp[j] - dl_s[q]);
+  }
+}
+
+// the min and max of the valid positions (>= 0 for keys) of n entries
+__device__ __forceinline__ void pos_range(const int* pos, int n, bool keys, int* out) {
+  int mn = INT_MAX, mx = INT_MIN;
+  for (int r = threadIdx.x; r < n; r += 32) {
+    const int v = pos[r];
+    if (!keys || v >= 0) {
+      mn = min(mn, v);
+      mx = max(mx, v);
+    }
+  }
+  warp_min_max(mn, mx);
+  if (threadIdx.x == 0) {
+    out[0] = mn;
+    out[1] = mx;
+  }
+}
+
+// dK, dV of 32 keys: a loop over the query tiles the keys may be seen by.
+// Thread (warp kr, lane) accumulates keys 4 kr .. 4 kr + 3 at columns
+// lane + 32 c, in registers, summing the query tiles in order: no atomics.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  const int D = p.D, ld = D + 4;
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + BK * ld;
+  float* Qs = Vs + BK * ld;
+  float* dOs = Qs + BQ * ld;
+  float* Ps = dOs + BQ * ld;
+  float* dSs = Ps + BQ * P_LD;
+  float* lse_s = dSs + BQ * P_LD;
+  float* dl_s = lse_s + BQ;
+  int* qpos_s = reinterpret_cast<int*>(dl_s + BQ);
+  int* kpos_s = qpos_s + BQ;
+  __shared__ int range[4];  // valid key min, max; query min, max
+
+  const int tid = threadIdx.x, lane = tid % 32, kr = tid / 32;
+  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int nk = min(BK, p.Sk - k0);
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* gb = static_cast<const T*>(p.dout) + b * p.g_sb + h * p.g_sh;
+  const size_t row0 = ((size_t)b * p.H + h) * p.Sq;
+
+  load_tile(Ks, ld, kb, p.k_ss, k0, nk, D);
+  load_tile(Vs, ld, vb, p.v_ss, k0, nk, D);
+  if (tid < BK) kpos_s[tid] = tid < nk ? p.k_pos[k0 + tid] : -1;
+  __syncthreads();
+  if (tid < 32) pos_range(kpos_s, BK, true, range);
+
+  float dk[4][MAX_C], dv[4][MAX_C];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < MAX_C; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  for (int q0 = 0; q0 < p.Sq; q0 += BQ) {
+    const int nq = min(BQ, p.Sq - q0);
+    if (tid < BQ) {
+      qpos_s[tid] = tid < nq ? p.q_pos[q0 + tid] : 0;
+      lse_s[tid] = tid < nq ? p.lse[row0 + q0 + tid] : 0.f;
+      dl_s[tid] = tid < nq ? p.delta[row0 + q0 + tid] : 0.f;
+    }
+    __syncthreads();
+    if (tid < 32) pos_range(qpos_s, nq, false, range + 2);
+    __syncthreads();
+    const bool skip = tile_hidden(range[0], range[1], range[2], range[3], p.causal, p.window);
+    if (skip) {
+      __syncthreads();  // every thread has read range[] before it is rewritten
+      continue;
+    }
+    load_tile(Qs, ld, qb, p.q_ss, q0, nq, D);
+    load_tile(dOs, ld, gb, p.g_ss, q0, nq, D);
+    __syncthreads();
+    tile_p_ds(Qs, dOs, Ks, Vs, ld, lse_s, dl_s, qpos_s, kpos_s, nq, p, Ps, dSs, P_LD, 1);
+    __syncthreads();
+    for (int q = 0; q < nq; ++q) {
+      const float4 pr = *reinterpret_cast<const float4*>(Ps + q * P_LD + 4 * kr);
+      const float4 sr = *reinterpret_cast<const float4*>(dSs + q * P_LD + 4 * kr);
+      const float pv[4] = {pr.x, pr.y, pr.z, pr.w}, sv[4] = {sr.x, sr.y, sr.z, sr.w};
+#pragma unroll
+      for (int c = 0; c < MAX_C; ++c) {
+        const int d = lane + 32 * c;
+        if (d < D) {
+          const float g = dOs[q * ld + d], x = Qs[q * ld + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dv[i][c] = fmaf(pv[i], g, dv[i][c]);
+            dk[i][c] = fmaf(sv[i], x, dk[i][c]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next tile's loads overwrite Qs, dOs, P and dS
+  }
+
+  T* dkb = static_cast<T*>(p.dk) + (((size_t)b * p.H + h) * p.Sk) * D;
+  T* dvb = static_cast<T*>(p.dv) + (((size_t)b * p.H + h) * p.Sk) * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = 4 * kr + i;
+    if (k >= nk) continue;
+#pragma unroll
+    for (int c = 0; c < MAX_C; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) {
+        dkb[(size_t)(k0 + k) * D + d] = from_f32<T>(dk[i][c] * p.scale);
+        dvb[(size_t)(k0 + k) * D + d] = from_f32<T>(dv[i][c]);
+      }
+    }
+  }
+}
+
+// dQ of 32 queries: a loop over the key tiles they may see.  Thread (warp
+// qr, lane) accumulates queries 4 qr .. 4 qr + 3 at columns lane + 32 c;
+// dS is staged transposed so a thread reads its 4 queries as one float4.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) dq_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  const int D = p.D, ld = D + 4;
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + BQ * ld;
+  float* Ks = dOs + BQ * ld;
+  float* Vs = Ks + BK * ld;
+  float* Ps = Vs + BK * ld;
+  float* dSt = Ps + BQ * P_LD;  // [key][query]
+  float* lse_s = dSt + BK * P_LD;
+  float* dl_s = lse_s + BQ;
+  int* qpos_s = reinterpret_cast<int*>(dl_s + BQ);
+  int* kpos_s = qpos_s + BQ;
+  __shared__ int range[4];  // query min, max; valid key min, max
+
+  const int tid = threadIdx.x, lane = tid % 32, qr = tid / 32;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int nq = min(BQ, p.Sq - q0);
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* gb = static_cast<const T*>(p.dout) + b * p.g_sb + h * p.g_sh;
+  const size_t row0 = ((size_t)b * p.H + h) * p.Sq;
+
+  load_tile(Qs, ld, qb, p.q_ss, q0, nq, D);
+  load_tile(dOs, ld, gb, p.g_ss, q0, nq, D);
+  if (tid < BQ) {
+    qpos_s[tid] = tid < nq ? p.q_pos[q0 + tid] : 0;
+    lse_s[tid] = tid < nq ? p.lse[row0 + q0 + tid] : 0.f;
+    dl_s[tid] = tid < nq ? p.delta[row0 + q0 + tid] : 0.f;
+  }
+  __syncthreads();
+  if (tid < 32) pos_range(qpos_s, nq, false, range);
+
+  float dq[4][MAX_C];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < MAX_C; ++c) dq[i][c] = 0.f;
+
+  for (int k0 = 0; k0 < p.Sk; k0 += BK) {
+    const int nk = min(BK, p.Sk - k0);
+    if (tid < BK) kpos_s[tid] = tid < nk ? p.k_pos[k0 + tid] : -1;
+    __syncthreads();
+    if (tid < 32) pos_range(kpos_s, BK, true, range + 2);
+    __syncthreads();
+    const bool skip = tile_hidden(range[2], range[3], range[0], range[1], p.causal, p.window);
+    if (skip) {
+      __syncthreads();  // every thread has read range[] before it is rewritten
+      continue;
+    }
+    load_tile(Ks, ld, kb, p.k_ss, k0, nk, D);
+    load_tile(Vs, ld, vb, p.v_ss, k0, nk, D);
+    __syncthreads();
+    tile_p_ds(Qs, dOs, Ks, Vs, ld, lse_s, dl_s, qpos_s, kpos_s, nq, p, Ps, dSt, 1, P_LD);
+    __syncthreads();
+    for (int k = 0; k < nk; ++k) {
+      const float4 sr = *reinterpret_cast<const float4*>(dSt + k * P_LD + 4 * qr);
+      const float sv[4] = {sr.x, sr.y, sr.z, sr.w};
+#pragma unroll
+      for (int c = 0; c < MAX_C; ++c) {
+        const int d = lane + 32 * c;
+        if (d < D) {
+          const float x = Ks[k * ld + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dq[i][c] = fmaf(sv[i], x, dq[i][c]);
+        }
+      }
+    }
+    __syncthreads();  // the next tile's loads overwrite K, V and dS
+  }
+
+  T* dqb = static_cast<T*>(p.dq) + row0 * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = 4 * qr + i;
+    if (q >= nq) continue;
+#pragma unroll
+    for (int c = 0; c < MAX_C; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) dqb[(size_t)(q0 + q) * D + d] = from_f32<T>(dq[i][c] * p.scale);
+    }
+  }
+}
+
+template <typename T>
+int launch(const Params& p, int B, cudaStream_t st) {
+  const size_t smem = smem_bytes(p.D);
+  cudaError_t e = cudaFuncSetAttribute(dkdv_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  delta_kernel<T><<<dim3((p.Sq + THREADS / 32 - 1) / (THREADS / 32), p.H, B), THREADS, 0, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dkdv_kernel<T><<<dim3((p.Sk + BK - 1) / BK, p.H, B), THREADS, smem, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dq_kernel<T><<<dim3((p.Sq + BQ - 1) / BQ, p.H, B), THREADS, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 extern "C" {
@@ -791,10 +1141,11 @@ const char* error_string(int code) {
 }
 
 // float32.  q, k, v, o: (B, H, S, D) with element strides (sb, sh, ss) and
-// unit stride on D; q_pos (Sq,), k_pos (Sk,) contiguous int32.
+// unit stride on D; q_pos (Sq,), k_pos (Sk,) contiguous int32; lse null,
+// or a contiguous (B, H, Sq) float32 buffer for the rows' log-sum-exp.
 int flash_attention_f32_launch(const void* q, const void* k, const void* v, void* o,
-                               const void* q_pos, const void* k_pos, int B, int H, int Sq,
-                               int Sk, int D, long long q_sb, long long q_sh, long long q_ss,
+                               void* lse, const void* q_pos, const void* k_pos, int B, int H,
+                               int Sq, int Sk, int D, long long q_sb, long long q_sh, long long q_ss,
                                long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                                long long v_sh, long long v_ss, long long o_sb, long long o_sh,
                                long long o_ss, int causal, int window, double scale,
@@ -804,7 +1155,8 @@ int flash_attention_f32_launch(const void* q, const void* k, const void* v, void
     return (int)cudaErrorInvalidValue;
   const f32::Params p{static_cast<const float*>(q), static_cast<const float*>(k),
                       static_cast<const float*>(v), static_cast<float*>(o),
-                      static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
+                      static_cast<float*>(lse), static_cast<const int*>(q_pos),
+                      static_cast<const int*>(k_pos),
                       q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
                       Sq, Sk, D, causal, window, (float)scale};
   const size_t smem = f32::smem_bytes(D);
@@ -819,10 +1171,11 @@ int flash_attention_f32_launch(const void* q, const void* k, const void* v, void
 // bfloat16.  q: (B, H, Sq, D); k, v: (Bk, Hk, Sk, D) with Bk in {1, B} and
 // Hk in {1, H} (a length-1 axis is shared by every b or h); element
 // strides (sb, sh, ss) each a multiple of 8 and 16-byte aligned bases; o
-// like q with any strides; q_pos (Sq,), k_pos (Sk,) contiguous int32.
+// like q with any strides; q_pos (Sq,), k_pos (Sk,) contiguous int32; lse
+// as for the float32 kernel.
 int flash_attention_bf16_launch(const void* q, const void* k, const void* v, void* o,
-                                const void* q_pos, const void* k_pos, int B, int H, int Bk,
-                                int Hk, int Sq, int Sk, int D, long long q_sb, long long q_sh,
+                                void* lse, const void* q_pos, const void* k_pos, int B, int H,
+                                int Bk, int Hk, int Sq, int Sk, int D, long long q_sb, long long q_sh,
                                 long long q_ss, long long k_sb, long long k_sh, long long k_ss,
                                 long long v_sb, long long v_sh, long long v_ss, long long o_sb,
                                 long long o_sh, long long o_ss, int causal, int window,
@@ -835,13 +1188,40 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v, voi
   if (!err) err = tc::make_map(&km, k, Bk, Hk, Sk, D, k_sb, k_sh, k_ss, tc::BK);
   if (!err) err = tc::make_map(&vm, v, Bk, Hk, Sk, D, v_sb, v_sh, v_ss, tc::BK);
   if (err) return err;
-  const tc::Params p{static_cast<__nv_bfloat16*>(o), static_cast<const int*>(q_pos),
-                     static_cast<const int*>(k_pos), o_sb, o_sh, o_ss, Sq, Sk, D, causal,
-                     window, Hk, Bk, (float)scale};
+  const tc::Params p{static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+                     static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), o_sb, o_sh,
+                     o_ss, Sq, Sk, D, causal, window, Hk, Bk, (float)scale};
   const cudaStream_t st = (cudaStream_t)stream;
   if (D <= 64) return tc::launch<64>(qm, km, vm, p, B, H, st);
   if (D <= 128) return tc::launch<128>(qm, km, vm, p, B, H, st);
   return tc::launch<256>(qm, km, vm, p, B, H, st);
+}
+
+// The backward of either kernel.  q, o, dout: (B, H, Sq, D); k, v:
+// (B, H, Sk, D); each with element strides (sb, sh, ss) (a stride-0 head
+// axis allowed: every head's own dK, dV are written) and unit stride on
+// D; lse: the forward's (B, H, Sq) float32 log-sum-exp; delta: (B, H, Sq)
+// float32 scratch; dq (B, H, Sq, D), dk and dv (B, H, Sk, D) contiguous, of
+// the inputs' type (bf16 != 0: bfloat16, else float32).
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const void* lse, const void* q_pos,
+                               const void* k_pos, void* delta, void* dq, void* dk, void* dv,
+                               int bf16, int B, int H, int Sq, int Sk, int D, long long q_sb,
+                               long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+                               long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+                               long long o_sb, long long o_sh, long long o_ss, long long g_sb,
+                               long long g_sh, long long g_ss, int causal, int window,
+                               double scale, void* stream) {
+  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 || D < 16 ||
+      D > 32 * bwd::MAX_C || D % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const bwd::Params p{q, k, v, o, dout, static_cast<const float*>(lse),
+                      static_cast<float*>(delta), dq, dk, dv,
+                      static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
+                      q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+                      g_sb, g_sh, g_ss, H, Sq, Sk, D, causal, window, (float)scale};
+  const cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? bwd::launch<__nv_bfloat16>(p, B, st) : bwd::launch<float>(p, B, st);
 }
 
 }  // extern "C"

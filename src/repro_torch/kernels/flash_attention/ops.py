@@ -16,6 +16,16 @@ one KV head expanded to H heads with stride 0, need no copy), unit
 stride on D.  The bfloat16 kernel reads through TMA, which wants
 16-byte aligned bases and strides; a tensor without them is copied
 first.  The output has q's type and q's layout.
+
+On the card a call that needs a gradient goes through ``FlashAttention``,
+an ``autograd.Function``: its forward also writes each row's
+log-sum-exp (``flash_attention_lse``), and its backward is three more
+kernels (``flash_attention_bwd``: the rows' ``rowsum(dO * O)``, dK and dV
+over key tiles, dQ over query tiles), deterministic, on CUDA cores in
+float32 for float32 and bfloat16 inputs.  K and V come in expanded to H
+heads (a stride-0 head axis for one KV head): the backward writes every
+head's dK and dV, and autograd's ``expand`` backward sums them.
+``LAUNCHES["bwd"]`` counts backward calls that reach the card.
 """
 from __future__ import annotations
 
@@ -26,12 +36,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "bwd": 0}
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
-    "flash_attention_f32_launch": [_P] * 6 + [_I] * 5 + [_L] * 12 + [_I, _I, _D, _P],
-    "flash_attention_bf16_launch": [_P] * 6 + [_I] * 7 + [_L] * 12 + [_I, _I, _D, _P],
+    "flash_attention_f32_launch": [_P] * 7 + [_I] * 5 + [_L] * 12 + [_I, _I, _D, _P],
+    "flash_attention_bf16_launch": [_P] * 7 + [_I] * 7 + [_L] * 12 + [_I, _I, _D, _P],
+    "flash_attention_bwd_launch": [_P] * 12 + [_I] * 6 + [_L] * 15 + [_I, _I, _D, _P],
 }
 
 
@@ -43,6 +54,22 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int =
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                  window=window).to(q.dtype)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window)
+    return _forward(q, k, v, q_pos, k_pos, causal, window, with_lse=False)[0]
+
+
+def flash_attention_lse(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int = 0):
+    """``flash_attention`` and each row's log-sum-exp of its scaled scores
+    ((B, H, Sq) float32, ``-inf`` for a row with no key): the forward the
+    backward needs."""
+    if q.device.type == "cpu":
+        return (ref.attention_ref(q, k, v, q_pos, k_pos, causal=causal, window=window)
+                .to(q.dtype), ref.lse_ref(q, k, q_pos, k_pos, causal=causal, window=window))
+    return _forward(q, k, v, q_pos, k_pos, causal, window, with_lse=True)
+
+
+def _check(q, k, v, q_pos, k_pos):
     if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, q_pos, k_pos)):
         raise ValueError("flash_attention runs on cuda or cpu, with every input "
                          f"on one device; q is on {q.device}")
@@ -62,8 +89,15 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int =
     if tuple(q_pos.shape) != (Sq,) or tuple(k_pos.shape) != (Sk,):
         raise ValueError(f"flash_attention wants q_pos ({Sq},) and k_pos ({Sk},), got "
                          f"{tuple(q_pos.shape)}, {tuple(k_pos.shape)}")
-    q_pos = q_pos.to(torch.int32).contiguous()
-    k_pos = k_pos.to(torch.int32).contiguous()
+    return q_pos.to(torch.int32).contiguous(), k_pos.to(torch.int32).contiguous()
+
+
+def _forward(q, k, v, q_pos, k_pos, causal, window, with_lse):
+    q_pos, k_pos = _check(q, k, v, q_pos, k_pos)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
+    lse_ptr = lse.data_ptr() if with_lse else None
     lib = _build.load("flash_attention", _SIGNATURES)
     if q.dtype == torch.bfloat16:
         q, _, _, *q_str = tma_view(q, shared=False)
@@ -74,7 +108,7 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int =
         out = torch.empty_like(q)  # q's layout when q is dense, else contiguous
         with torch.cuda.device(q.device):
             err = lib.flash_attention_bf16_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
                 q_pos.data_ptr(), k_pos.data_ptr(), B, H, Bk, Hk, Sq, Sk, D,
                 *q_str, *k_str, *v_str, *out.stride()[:3],
                 int(causal), int(window), float(D) ** -0.5, _build.stream_of(q))
@@ -84,12 +118,69 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int =
         strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
         with torch.cuda.device(q.device):
             err = lib.flash_attention_f32_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
                 q_pos.data_ptr(), k_pos.data_ptr(), B, H, Sq, Sk, D, *strides,
                 int(causal), int(window), float(D) ** -0.5, _build.stream_of(q))
     _build.check(lib, err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, q_pos, k_pos, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """The gradients ``(dq, dk, dv)`` of ``flash_attention`` at output ``o``
+    with row log-sum-exp ``lse`` (from ``flash_attention_lse``) and output
+    gradient ``do``; each in its input's shape and type, dk and dv per head
+    of the (expanded) k and v."""
+    if q.device.type == "cpu":
+        return tuple(g.to(q.dtype) for g in ref.attention_bwd_ref(
+            q, k, v, q_pos, k_pos, o, lse, do, causal=causal, window=window))
+    q_pos, k_pos = _check(q, k, v, q_pos, k_pos)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
+            or o.dtype != q.dtype or tuple(lse.shape) != (B, H, Sq) \
+            or lse.dtype != torch.float32 or any(t.device != q.device for t in (o, lse, do)):
+        raise ValueError("flash_attention_bwd wants o and do like q and lse (B, H, Sq) "
+                         "float32 on q's device")
+    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do))
+    do = do.to(q.dtype)
+    lse = lse.contiguous()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, H, Sk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
+    lib = _build.load("flash_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
+            B, H, Sq, Sk, D, *strides, int(causal), int(window), float(D) ** -0.5,
+            _build.stream_of(q))
+    _build.check(lib, err, "flash_attention_bwd")
+    LAUNCHES["bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its backward kernels; the wrapper applies
+    it on the card when a gradient is needed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window):
+        out, lse = flash_attention_lse(q, k, v, q_pos, k_pos, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None, None
 
 
 def tma_view(t, shared: bool = True):

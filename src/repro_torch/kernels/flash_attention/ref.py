@@ -1,6 +1,8 @@
-"""Plain PyTorch version of the flash-attention kernel: the naive masked
-softmax of the reference's ``attention_ref``, in float32.  It
-materialises the (B, H, Sq, Sk) scores: 4.3 GB at B=4, H=16, S=4096."""
+"""Plain PyTorch versions of the flash-attention kernels: the naive
+masked softmax of the reference's ``attention_ref``, each row's
+log-sum-exp, and the backward by its explicit formulas, in float32.
+They materialise the (B, H, Sq, Sk) scores: 4.3 GB at B=4, H=16,
+S=4096."""
 from __future__ import annotations
 
 import torch
@@ -32,3 +34,35 @@ def attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int = 0
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32))
     return torch.where(ok.any(dim=-1)[:, None], out, 0.0)
+
+
+def _scores(q, k, q_pos, k_pos, causal, window, scale):
+    scale = scale or q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k.to(torch.float32)) * scale
+    return s, position_mask(q_pos, k_pos, causal=causal, window=window)
+
+
+def lse_ref(q, k, q_pos, k_pos, *, causal: bool = True, window: int = 0, scale=None):
+    """(B, H, Sq) float32: log sum_j exp(scale q_i . k_j) over the keys
+    the masks allow; -inf for a row with no key."""
+    s, ok = _scores(q, k, q_pos, k_pos, causal, window, scale)
+    return torch.logsumexp(torch.where(ok, s, -torch.inf), dim=-1)
+
+
+def attention_bwd_ref(q, k, v, q_pos, k_pos, o, lse, do, *, causal: bool = True,
+                      window: int = 0, scale=None):
+    """The backward of ``attention_ref`` at output ``o`` with row
+    log-sum-exp ``lse``: P = exp(scale S - lse) under the masks,
+    dV = P^T dO, dP = dO V^T, delta = rowsum(dO * O), dS = P (dP - delta),
+    dQ = scale dS K, dK = scale dS^T Q.  Returns (dq, dk, dv) float32; a row
+    with no key gives zero gradients."""
+    scale = scale or q.shape[-1] ** -0.5
+    q, k, v, o, do, lse = (t.to(torch.float32) for t in (q, k, v, o, do, lse))
+    s, ok = _scores(q, k, q_pos, k_pos, causal, window, scale)
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    ds = p * (dp - (do * o).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    return dq, dk, dv

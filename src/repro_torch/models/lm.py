@@ -4,8 +4,16 @@
     model = init(cfg, seed, device)                 # random weights from a seed
     model = from_state_dict(cfg, state, device)     # carried weights
     logits = model(tokens)                          # (B, S, Vp) float32
+    loss = lm_loss(logits, labels)                  # the training loss
     logits, caches = model.prefill(tokens, cache_len)
     logits, caches = model.decode_step(caches, tokens, pos)
+
+``init`` and ``from_state_dict`` return the model in eval mode with its
+parameters frozen (serving); a trainer turns gradients on
+(``model.requires_grad_(True)``).  ``model(tokens)`` is the training
+forward: under ``cfg.remat == "full"`` each layer runs inside
+``torch.utils.checkpoint`` (its activations are recomputed in the
+backward pass), the reference's ``jax.checkpoint`` of each unit.
 
 ``model.layers`` is one ``nn.ModuleList`` in the order the reference's
 ``_run_units`` runs its layers: the remainder layers, then the units.
@@ -27,6 +35,7 @@ from typing import List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import attention as attn_mod
@@ -125,10 +134,17 @@ class LM(nn.Module):
 
     def forward(self, tokens):
         """tokens (B, S) -> logits (B, S, Vp) float32."""
+        remat = self.cfg.remat
+        if remat not in ("none", "full"):
+            raise NotImplementedError(f"remat={remat!r}: the port has 'none' and 'full' "
+                                      "(ROADMAP Queue 1, item 3)")
         x = self._embed(tokens)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         for layer in self.layers:
-            x = layer(x, positions)
+            if remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(layer, x, positions, use_reentrant=False)
+            else:
+                x = layer(x, positions)
         return self._logits(x)
 
     def prefill(self, tokens, cache_len: int = 0):
@@ -153,6 +169,21 @@ class LM(nn.Module):
             x, cache = layer.decode(x, cache, pos)
             out.append(cache)
         return self._logits(x), out
+
+
+def lm_loss(logits, labels, weights=None, z_loss: float = 1e-4):
+    """Masked softmax cross-entropy over the (padded) vocabulary, plus
+    ``z_loss * lse^2`` (the reference's ``lm_loss``).  logits (B, S, Vp),
+    labels (B, S) int, weights (B, S) or None -> a float32 scalar.  The
+    gold logit is gathered, not taken through a (B, S, V) one-hot."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    ce = lse - gold
+    if z_loss:
+        ce = ce + z_loss * lse.square()
+    w = torch.ones_like(ce) if weights is None else weights.to(torch.float32)
+    return (ce * w).sum() / w.sum().clamp_min(1.0)
 
 
 def init(cfg, seed: int = 0, device: DeviceLike = None) -> LM:

@@ -1,10 +1,62 @@
-"""Prefill and serve step factories (port of ``repro.train.steps``).  The
-train step is ported with the training slice (ROADMAP Queue 1, item 9b).
-One card holds the whole model, so there is no model axis to shard over:
-the KV cache keeps the reference's layout at ``model_axis=1``."""
+"""Train, prefill and serve step factories (port of ``repro.train.steps``).
+
+The train step differentiates through the port's kernels: on the card,
+``flash_attention`` and ``rglru_scan`` run their backward kernels
+(``autograd.Function``s in their ``ops.py``); on the CPU autograd
+differentiates their plain versions.  One card holds the whole model,
+so there is no model axis to shard over: the KV cache keeps the
+reference's layout at ``model_axis=1``.
+"""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models import lm
+from repro_torch.optim import adamw
+
+MOE_AUX_COEF = 0.01
+
+
+def make_loss_fn(cfg):
+    """(model, batch {'tokens', 'labels', optional 'weights'}) ->
+    (total, {"loss", "aux_loss"}), with the reference's signature.  The
+    port has no MoE block and no image prefix yet (``lm.LM`` raises for
+    both), so nothing of ``cfg`` is read: the auxiliary loss is 0 and
+    every logit is a text position's."""
+
+    def loss_fn(model, batch):
+        logits = model(batch["tokens"])
+        loss = lm.lm_loss(logits, batch["labels"], batch.get("weights"))
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        total = loss + MOE_AUX_COEF * aux
+        return total, {"loss": loss, "aux_loss": aux}
+
+    return loss_fn
+
+
+def make_train_step(cfg, ocfg: adamw.AdamWConfig = adamw.AdamWConfig()):
+    """(model, opt_state, batch) -> (model, opt_state, metrics): the loss,
+    its gradients by backpropagation, and one AdamW update in place.  The
+    model's parameters must require gradients; after the step they hold
+    this step's (clipped) gradients in ``.grad``."""
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(model, opt_state, batch):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        total, metrics = loss_fn(model, batch)
+        total.backward()
+        grads = {k: p.grad for k, p in params.items()}
+        missing = [k for k, g in grads.items() if g is None]
+        if missing:
+            raise RuntimeError(f"no gradient reached {missing}")
+        _, opt_state, opt_metrics = adamw.update(grads, opt_state, params, ocfg)
+        metrics = dict({k: v.detach() for k, v in metrics.items()}, total_loss=total.detach(),
+                       **opt_metrics)
+        return model, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cache_len: int = 0):

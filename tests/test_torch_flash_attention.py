@@ -6,6 +6,7 @@ attention, a single query, bf16, ring-cache holes) at its tolerances
 (float32 2e-5, bfloat16 2e-2); and the port's plain full-sequence paths
 (``blockwise_attention``, ``direct_attention``, the (B, S, H, hd) layout)
 against ``repro.models.attention``'s, within 1e-5."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -253,3 +254,84 @@ def test_tma_view_layouts(layout):
     in_place = layout in ("bshd", "mqa", "one_query")
     assert (got.data_ptr() == t.data_ptr()) == in_place
     assert got.data_ptr() % 16 == 0
+
+
+# ---------------------------------------------------------------------------
+# Backward and the row log-sum-exp
+# ---------------------------------------------------------------------------
+
+BWD_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _bwd_case(seed, B, H, Sq, Sk, D, causal, window, holes):
+    q, k, v = _qkv(seed, B, H, Sq, Sk, D)
+    do = np.random.RandomState(seed + 1).randn(B, H, Sq, D).astype(np.float32) * 0.5
+    k_pos = np.arange(Sk, dtype=np.int32)
+    q_pos = (k_pos[Sk - Sq:] if causal else k_pos[:Sq]).copy()
+    if holes:
+        k_pos = np.where(k_pos % 5 == 2, -1, k_pos).astype(np.int32)
+        q_pos[0] = -1  # a row with no key
+    return q, k, v, do, q_pos, k_pos
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,window,holes", [
+    (1, 2, 40, 40, 16, True, 0, False),
+    (2, 1, 48, 80, 32, True, 24, False),   # window, Sq < Sk
+    (1, 2, 33, 50, 16, False, 0, False),   # cross attention
+    (1, 1, 45, 45, 32, True, 10, True),    # holes, a row with no key
+])
+def test_attention_bwd_ref_matches_jax_vjp(B, H, Sq, Sk, D, causal, window, holes):
+    """``attention_bwd_ref`` (explicit formulas) and ``lse_ref`` against
+    jax.vjp of the reference's oracle ``attention_ref``."""
+    from repro.kernels.flash_attention.ref import attention_ref as jax_attention
+
+    q, k, v, do, q_pos, k_pos = _bwd_case(Sq + D, B, H, Sq, Sk, D, causal, window, holes)
+    kw = dict(causal=causal, window=window)
+    out, vjp = jax.vjp(lambda a, b, c: jax_attention(a, b, c, jnp.asarray(q_pos),
+                                                      jnp.asarray(k_pos), **kw),
+                       *(jnp.asarray(a) for a in (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo, tqp, tkp = (torch.from_numpy(a) for a in (q, k, v, do, q_pos, k_pos))
+    lse = ref.lse_ref(tq, tk, tqp, tkp, **kw)
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) * D ** -0.5
+    ok = ref.position_mask(tqp, tkp, **kw).numpy()
+    want_lse = np.asarray(jax.nn.logsumexp(jnp.where(ok, s, -jnp.inf), axis=-1))
+    np.testing.assert_allclose(lse.numpy(), want_lse, **BWD_TOL)
+    assert np.isneginf(lse.numpy()[..., 0]).all() == holes
+    got = ref.attention_bwd_ref(tq, tk, tv, tqp, tkp, torch.from_numpy(np.asarray(out)), lse,
+                                tdo, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **BWD_TOL)
+    if holes:
+        assert not got[0][:, :, 0].any()
+
+
+def test_attention_function_plumbing_on_cpu():
+    """``FlashAttention`` (what the wrapper applies on the card) run on CPU
+    tensors, where its forward and backward calls take the plain versions,
+    with one KV head expanded at stride 0 as the model passes it: the
+    gradients autograd gives through it (the expand's backward summing
+    the heads' dK, dV) equal the reference's."""
+    from repro.kernels.flash_attention.ref import attention_ref as jax_attention
+
+    B, H, S, D = 2, 3, 40, 16
+    q, k1, v1, do, q_pos, k_pos = _bwd_case(3, B, 1, S, S, D, True, 12, True)
+    q = np.repeat(q, H, axis=1) * np.linspace(0.5, 1.5, H)[None, :, None, None]
+    q = q.astype(np.float32)
+    do = np.repeat(do, H, axis=1)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k1, v1)]
+    launches = dict(ops.LAUNCHES)
+    out = ops.FlashAttention.apply(leaves[0], leaves[1].expand(B, H, S, D),
+                                   leaves[2].expand(B, H, S, D), torch.from_numpy(q_pos),
+                                   torch.from_numpy(k_pos), True, 12)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    assert ops.LAUNCHES == launches
+
+    def f(a, b, c):
+        return jax_attention(a, jnp.repeat(b, H, axis=1), jnp.repeat(c, H, axis=1),
+                             jnp.asarray(q_pos), jnp.asarray(k_pos), causal=True, window=12)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k1, v1)))
+    for name, g, w in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **BWD_TOL)

@@ -1,0 +1,162 @@
+"""The LM kernels' training path on the card: the forward attention
+kernels' row log-sum-exp, the attention backward kernels and the RG-LRU
+backward scan against their plain versions (``ref.lse_ref``,
+``ref.attention_bwd_ref``, ``ref.rglru_bwd_ref`` and the emulation of the
+reverse chunk decomposition), and the wrappers' gradients through their
+``autograd.Function``s against autograd through the plain versions on the
+CPU.  Causal, windowed and cross masks, ring-cache holes, a row with no
+key, one KV head at stride 0, ragged tiles and chunks; float32 within
+2e-5 and bfloat16 within 2e-2 (the reference's kernel-test tolerances),
+the log-sum-exp within 1e-4.  Needs the card; run there with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_bwd_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.rglru_scan import ops as rg_ops
+from repro_torch.kernels.rglru_scan import ref as rg_ref
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+LSE_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the backward passes are CUDA kernels")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _attention(card, B, H, Sq, Sk, D, causal, window, holes, dtype, shared_kv, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = (torch.randn(B, H, Sq, D, generator=g) * 0.5).to(dtype)
+    if shared_kv:  # one KV head expanded to H at stride 0, as the model passes it
+        k, v = ((torch.randn(B, 1, Sk, D, generator=g) * 0.5).to(dtype).to(card)
+                .expand(B, H, Sk, D) for _ in range(2))
+    else:
+        k, v = ((torch.randn(B, H, Sk, D, generator=g) * 0.5).to(dtype).to(card)
+                for _ in range(2))
+    k_pos = torch.arange(Sk, dtype=torch.int32)
+    q_pos = k_pos[Sk - Sq:].clone() if causal else k_pos[:Sq].clone()
+    if holes:
+        k_pos = torch.where(k_pos % 5 == 2, -1, k_pos)
+        q_pos[0] = -1  # sees no key
+    do = (torch.randn(B, H, Sq, D, generator=g) * 0.5).to(dtype)
+    return q.to(card), k, v, q_pos.to(card), k_pos.to(card), do.to(card)
+
+
+ATTN_CASES = [
+    (1, 2, 64, 64, 32, True, 0, False, torch.float32, False),
+    (2, 2, 96, 160, 32, True, 48, False, torch.float32, False),
+    (1, 1, 64, 256, 64, False, 0, False, torch.float32, False),
+    (2, 2, 1, 96, 32, True, 0, False, torch.float32, False),
+    (1, 2, 70, 70, 16, True, 0, True, torch.float32, True),
+    (1, 2, 77, 77, 256, True, 20, True, torch.float32, False),
+    (2, 4, 300, 300, 256, True, 128, False, torch.bfloat16, True),
+    (1, 2, 200, 200, 64, True, 0, False, torch.bfloat16, False),
+    (2, 3, 129, 129, 128, True, 40, True, torch.bfloat16, True),
+    (1, 2, 100, 100, 48, False, 0, False, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,window,holes,dtype,shared_kv", ATTN_CASES)
+def test_attention_lse_and_backward_kernels(card, B, H, Sq, Sk, D, causal, window, holes,
+                                            dtype, shared_kv):
+    q, k, v, q_pos, k_pos, do = _attention(card, B, H, Sq, Sk, D, causal, window, holes,
+                                           dtype, shared_kv, seed=Sq * 31 + D)
+    kw = dict(causal=causal, window=window)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, q_pos, k_pos, **kw)
+    torch.cuda.synchronize()
+    want_lse = fa_ref.lse_ref(q, k, q_pos, k_pos, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    torch.testing.assert_close(lse[finite], want_lse[finite], **LSE_TOL)
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v, q_pos, k_pos, **kw))
+
+    launches = dict(fa_ops.LAUNCHES)
+    got = fa_ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["bwd"] == launches["bwd"] + 1
+    want = fa_ref.attention_bwd_ref(q, k, v, q_pos, k_pos, out, lse, do, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, w.to(dtype), msg=name, **TOL[dtype])
+    if holes:  # the row with no key gets no gradient
+        assert not got[0][:, :, 0].any()
+    again = fa_ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_function_gradients(card, dtype):
+    """The wrapper on tensors that need a gradient (one KV head expanded
+    at stride 0, causal, window 24) against autograd through the plain
+    version on the CPU."""
+    B, H, S, D = 2, 4, 90, 64
+    q, k, v, q_pos, k_pos, do = _attention(card, B, H, S, S, D, True, 24, False, dtype,
+                                           True, seed=5)
+    leaves = [q.clone().requires_grad_(), k[:, :1].clone().requires_grad_(),
+              v[:, :1].clone().requires_grad_()]
+
+    def run(qq, kk, vv, dev):
+        kk, vv = kk.expand(B, H, S, D), vv.expand(B, H, S, D)
+        out = fa_ops.flash_attention(qq, kk, vv, q_pos.to(dev), k_pos.to(dev), causal=True,
+                                     window=24)
+        return torch.autograd.grad(out, (qq, kk, vv), do.to(dev))
+
+    before = dict(fa_ops.LAUNCHES)
+    got = run(*leaves, card)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa_ops.LAUNCHES["bwd"] == before["bwd"] + 1
+    host = [t.detach().cpu().float().requires_grad_() for t in leaves]
+    want = run(*host, "cpu")
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float().cpu(), w, msg=name, **TOL[dtype])
+
+
+def _scan_inputs(card, B, S, W, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    log_a = -torch.rand(B, S, W, generator=g) * 0.5
+    b = torch.randn(B, S, W, generator=g)
+    dh = torch.randn(B, S, W, generator=g)
+    return log_a.to(card), b.to(card), dh.to(card)
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 1, 33), (1, 63, 33), (2, 64, 17), (1, 65, 65),
+                                   (1, 3 * 64 + 5, 31), (2, 4096, 256), (1, 4097, 130)])
+def test_rglru_backward_kernel(card, B, S, W):
+    log_a, b, dh = _scan_inputs(card, B, S, W, seed=S + W)
+    h = rg_ops.rglru(log_a, b)
+    launches = dict(rg_ops.LAUNCHES)
+    got = rg_ops.rglru_bwd(log_a, h, dh)
+    torch.cuda.synchronize()
+    assert rg_ops.LAUNCHES["bwd"] == launches["bwd"] + 1
+    for want in (rg_ref.rglru_bwd_ref(log_a, h, dh),
+                 rg_ref.rglru_bwd_chunked_ref(log_a, h, dh, rg_ops.CHUNK)):
+        for name, a, w in zip(("dlog_a", "db"), got, want):
+            torch.testing.assert_close(a, w, msg=name, **TOL[torch.float32])
+    again = rg_ops.rglru_bwd(log_a, h, dh)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))  # one fixed order
+
+
+def test_rglru_function_gradients(card):
+    log_a, b, dh = _scan_inputs(card, 2, 300, 96, seed=3)
+    la, bb = log_a.clone().requires_grad_(), b.clone().requires_grad_()
+    before = dict(rg_ops.LAUNCHES)
+    got = torch.autograd.grad(rg_ops.rglru(la, bb), (la, bb), dh)
+    torch.cuda.synchronize()
+    assert rg_ops.LAUNCHES == {"rglru": before["rglru"] + 1, "bwd": before["bwd"] + 1}
+    la_h, b_h = (t.detach().cpu().requires_grad_() for t in (log_a, b))
+    want = torch.autograd.grad(rg_ops.rglru(la_h, b_h), (la_h, b_h), dh.cpu())
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.cpu(), w, **TOL[torch.float32])

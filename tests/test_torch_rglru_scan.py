@@ -4,6 +4,7 @@ the reference Pallas kernel in interpret mode and against the model's
 associative scan (``repro.models.recurrent.rglru_scan``), on the grid of
 the reference's own kernel test, within its tolerance (atol = rtol =
 2e-5: float32 products taken in another order)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -86,3 +87,63 @@ def test_rglru_chunked_decomposition_any_chunk(chunk):
         seq.append(h.copy())
     got = ref.rglru_chunked_ref(torch.from_numpy(log_a), torch.from_numpy(b), chunk)
     np.testing.assert_allclose(got.numpy(), np.stack(seq, 1), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+BWD_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@jax.jit
+def _jax_vjp(log_a, b, dh):
+    from repro.kernels.rglru_scan.ref import rglru_ref as jax_rglru
+
+    h, vjp = jax.vjp(jax_rglru, log_a, b)
+    return (h, *vjp(dh))
+
+
+def _ref_vjp(log_a, b, dh):
+    """The reference's gradients: jax.vjp of its oracle ``rglru_ref``."""
+    return [np.asarray(a) for a in _jax_vjp(*(jnp.asarray(a) for a in (log_a, b, dh)))]
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 1, 8), (2, 37, 16), (1, 128, 33), (2, 3 * CHUNK + 5, 9)])
+def test_rglru_bwd_ref_matches_jax_vjp(B, S, W):
+    log_a, b = _inputs(S * 3 + W, B, S, W)
+    dh = np.random.RandomState(S).randn(B, S, W).astype(np.float32)
+    h, dla, db = _ref_vjp(log_a, b, dh)
+    got = ref.rglru_bwd_ref(torch.from_numpy(log_a), torch.from_numpy(h), torch.from_numpy(dh))
+    assert all(g.dtype == torch.float32 and tuple(g.shape) == (B, S, W) for g in got)
+    np.testing.assert_allclose(got[0].numpy(), dla, **BWD_TOL)
+    np.testing.assert_allclose(got[1].numpy(), db, **BWD_TOL)
+
+
+@pytest.mark.parametrize("S,chunk", [(2 * CHUNK + 7, CHUNK), (CHUNK, CHUNK), (45, 7), (45, 1)])
+def test_rglru_bwd_chunked_decomposition_matches_jax_vjp(S, chunk):
+    """The backward kernel's decomposition (chunk aggregates walking back,
+    a carry from the last chunk to the first, a rescan from each carry),
+    with a ragged last chunk, against the reference's gradients."""
+    log_a, b = _inputs(S + chunk, 2, S, 17, spread=1.0)
+    dh = np.random.RandomState(chunk).randn(2, S, 17).astype(np.float32)
+    h, dla, db = _ref_vjp(log_a, b, dh)
+    got = ref.rglru_bwd_chunked_ref(torch.from_numpy(log_a), torch.from_numpy(h),
+                                    torch.from_numpy(dh), chunk)
+    np.testing.assert_allclose(got[0].numpy(), dla, **BWD_TOL)
+    np.testing.assert_allclose(got[1].numpy(), db, **BWD_TOL)
+
+
+def test_rglru_function_plumbing_on_cpu():
+    """``RGLRUScan`` (what the wrapper applies on the card) run on CPU
+    tensors, where its forward and backward calls take the plain versions:
+    the gradients autograd gives through it equal the reference's."""
+    log_a, b = _inputs(9, 2, 70, 24)
+    dh = np.random.RandomState(1).randn(2, 70, 24).astype(np.float32)
+    la, bb = (torch.from_numpy(a).requires_grad_() for a in (log_a, b))
+    launches = dict(ops.LAUNCHES)
+    got = torch.autograd.grad(ops.RGLRUScan.apply(la, bb), (la, bb), torch.from_numpy(dh))
+    assert ops.LAUNCHES == launches
+    _, dla, db = _ref_vjp(log_a, b, dh)
+    np.testing.assert_allclose(got[0].numpy(), dla, **BWD_TOL)
+    np.testing.assert_allclose(got[1].numpy(), db, **BWD_TOL)
