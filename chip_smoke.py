@@ -37,7 +37,10 @@ one JSON line; any failure exits non-zero:
    (losses, grad norms, seconds per step, peak memory, every parameter's
    step-0 gradient finite and non-zero), and the reduced config (float32)
    for 12 steps with a save every 4: a crash at step 8 and a resume give
-   the same losses, and the CPU's plain versions the same within 1e-4.
+   the same losses, and the CPU's plain versions the same within 1e-4;
+   step 0's full-width loss must repeat 3047.7 (it runs only forward
+   kernels), and the run prints the losses, step seconds and peak memory
+   the CUDA-core attention backward gave beside its own.
    Kernel launch counts are zeroed just before each path and read just
    after; a kernel of a path that never launched fails the run, the
    serve prefill must launch ``flash_attention`` 12 and ``rglru_scan`` 52
@@ -61,7 +64,9 @@ one JSON line; any failure exits non-zero:
    also held against the plain emulation of their decomposition
    (``overlay`` bit for bit against ``overlay_seeded_ref``,
    ``overlay_batch``'s pre-pass layer lists against ``layer_lists_ref``,
-   RG-LRU within 2e-5 of ``rglru_chunked_ref``); the backward kernels
+   RG-LRU within 2e-5 of ``rglru_chunked_ref``, the bf16 attention
+   backward within 2^-10 of each output's largest value, rtol 2^-7, of
+   ``attention_bwd_bf16_ref``); the backward kernels
    (``flash_attention.bwd``, ``rglru_scan.bwd``) on the inputs the train
    steps gave them and at headline shapes, against ``attention_bwd_ref``,
    ``rglru_bwd_ref`` and ``rglru_bwd_chunked_ref``, with limits that scale
@@ -69,8 +74,9 @@ one JSON line; any failure exits non-zero:
    one bf16 step in bf16), each row printing that value beside its error;
    each backward case also shows that those limits reject a kernel with a
    planted fault (dQ zeroed, the delta term dropped; db zeroed, the carry
-   between chunks dropped; the last two only reported on the train
-   steps' inputs), and the forward's row log-sum-exp is held
+   between chunks dropped; on the train steps' inputs the carry and the
+   float32 delta faults are only reported), and the forward's row
+   log-sum-exp is held
    against ``lse_ref``;
    device times from
    CUDA events, beside the plain version's, one library call's where
@@ -128,6 +134,12 @@ RGLRU_TOL = dict(atol=2e-5, rtol=2e-5)
 BWD_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
            torch.bfloat16: dict(atol=2.0 ** -7, rtol=2.0 ** -7)}
 LSE_TOL = dict(atol=1e-4, rtol=1e-4)  # f32 row log-sum-exp, sums in another order
+# the bf16 backward against the emulation of its own arithmetic
+# (``attention_bwd_bf16_ref``: the same bf16 roundings of P^T, dS^T and dS):
+# the f32 sums differ only in order, so an output may round to the other
+# side of a bf16 step (rtol) and the rest is 2^-10 of the largest value,
+# 8 times tighter than BWD_TOL
+BWD_BF16_REF_TOL = dict(atol=2.0 ** -10, rtol=2.0 ** -7)
 # the mask check (q = 0, v = key-position bits): bf16 rounds its outputs by
 # at most 2^-9, one key more or less in a window of 64 moves a bit column
 # by at least 0.5 / 65
@@ -638,6 +650,12 @@ TRAIN_LAUNCHES = {"flash_attention": 2 * TRAIN_STEPS, "flash_attention.bwd": TRA
                   "rglru_scan": 8 * TRAIN_STEPS, "rglru_scan.bwd": 4 * TRAIN_STEPS}
 # the reduced config (float32, remat "none"): 12 steps, a save every 4
 REDUCED_TRAIN = dict(steps=12, batch=4, seq=64, checkpoint_every=4, seed=0, log_every=100)
+# what the full-width run gave with the CUDA-core attention backward, before
+# the bf16 one ran on wgmma (H100 80GB HBM3, 700 W): step 0's loss runs only
+# forward kernels, which have not changed since, so it must repeat; the
+# later losses follow the backward's rounding and are printed beside these
+CUDA_CORE_BWD_LOSSES = (3047.7, 2787.7, 1154.2)
+CUDA_CORE_BWD_STEP_SECONDS, CUDA_CORE_BWD_PEAK_GB = (0.524, 0.561), (71.3, 71.4)
 REDUCED_TRAIN_LAUNCHES = {"flash_attention": 12, "flash_attention.bwd": 12,
                           "rglru_scan": 48, "rglru_scan.bwd": 48}
 RESUME_TOL = dict(rtol=1e-5, atol=1e-6)  # the reference's crash/resume test
@@ -726,9 +744,11 @@ def lm_train(device, recorder=None, reduced=False):
          layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
          param_dtype=cfg.param_dtype, dtype=cfg.dtype, remat=cfg.remat, batch=batch,
          seq=seq, steps=len(losses), losses=losses,
+         cuda_core_bwd_losses=CUDA_CORE_BWD_LOSSES,
          grad_norms=[st["grad_norm"] for st in steps], lrs=[st["lr"] for st in steps],
          init_seconds=init_s, first_step_seconds=step_s[0], step_seconds=step_s[1:],
-         peak_memory_bytes=peak, launches=launches,
+         peak_memory_bytes=peak, cuda_core_bwd_step_seconds=CUDA_CORE_BWD_STEP_SECONDS,
+         cuda_core_bwd_peak_memory_gb=CUDA_CORE_BWD_PEAK_GB, launches=launches,
          step0_params_with_gradient=len(first["names"]) - len(bad),
          step0_params_without_finite_nonzero_gradient=bad,
          step0_grad_norm_min=float(first["norms"].min()),
@@ -736,6 +756,9 @@ def lm_train(device, recorder=None, reduced=False):
     del model, opt_state
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
         fail(f"lm train: losses {losses}")
+    if device.type == "cuda" and round(losses[0], 1) != CUDA_CORE_BWD_LOSSES[0]:
+        fail(f"lm train: step 0's loss {losses[0]}, not {CUDA_CORE_BWD_LOSSES[0]}: "
+             "the forward changed")
     if len(steps) != TRAIN_STEPS or len(first["names"]) != len(first["norms"]) or bad:
         fail(f"lm train: parameters without a finite non-zero gradient in step 0: {bad}")
     if device.type == "cuda" and launches != TRAIN_LAUNCHES:
@@ -1094,13 +1117,14 @@ def planted_faults(name, tag, args, kw, got, want, lims, plain, recorded) -> dic
     chunks dropped: g restarts from dh at each chunk's end) changes the
     output by as much as the inputs let that term weigh, so it must be
     rejected at the headline shapes, whose inputs are drawn to make it
-    weigh, and is only reported on the inputs a main path recorded (on
-    the full-width train step, dropping the carry moves db by ~1e-5 of its
-    largest value).
+    weigh, and on every bf16 attention case, and is only reported on the
+    other inputs a main path recorded (on the full-width train step,
+    dropping the carry moves db by ~1e-5 of its largest value).
     Returns each fault's max abs error and whether it was rejected."""
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rglru_scan import ref as rg_ref
 
+    bf16 = got[0].dtype == torch.bfloat16
     if name == "flash_attention.bwd":
         faults = {"dQ zeroed": (torch.zeros_like(got[0]),) + got[1:],
                   "delta dropped": plain(*args[:5], torch.zeros_like(args[5]), *args[6:], **kw)}
@@ -1119,7 +1143,7 @@ def planted_faults(name, tag, args, kw, got, want, lims, plain, recorded) -> dic
         rejected = not all(torch.allclose(o.float(), w.float(), **lim)
                            for o, w, lim in zip(outs, want, lims))
         out[fault] = dict(max_abs_err=err, rejected=rejected)
-        if not rejected and ("zeroed" in fault or not recorded):
+        if not rejected and ("zeroed" in fault or not recorded or bf16):
             fail(f"{name} ({tag}): a kernel with '{fault}' would pass the limits {lims} "
                  f"(its max err {err})")
     return out
@@ -1132,8 +1156,9 @@ def decomposition_check(name, tag, args, kw, got) -> dict:
     ``overlay_batch``'s pre-pass lists bit for bit against
     ``layer_lists_ref``, ``rglru_scan`` and its backward within RGLRU_TOL
     of ``rglru_chunked_ref`` / ``rglru_bwd_chunked_ref`` at the kernel's
-    chunk; and the attention backward's input ``lse`` (the forward
-    kernel's) within LSE_TOL of ``lse_ref``, ``-inf`` on the same rows."""
+    chunk; the attention backward's input ``lse`` (the forward kernel's)
+    within LSE_TOL of ``lse_ref``, ``-inf`` on the same rows, and its bf16
+    outputs within BWD_BF16_REF_TOL of ``attention_bwd_bf16_ref``."""
     if name == "delta_overlay.overlay":
         from repro_torch.kernels.delta_overlay import ref as ov_ref
 
@@ -1180,7 +1205,16 @@ def decomposition_check(name, tag, args, kw, got) -> dict:
         err = float((lse[finite] - want[finite]).abs().max()) if finite.any() else 0.0
         if not torch.allclose(lse[finite], want[finite], **LSE_TOL):
             fail(f"{name} ({tag}): the forward's lse outside {LSE_TOL} of lse_ref: {err}")
-        return dict(lse_max_abs_err=err, rows_without_key=int((~finite).sum()))
+        out = dict(lse_max_abs_err=err, rows_without_key=int((~finite).sum()))
+        if q.dtype == torch.bfloat16:  # the wgmma kernels' own arithmetic
+            want = fa_ref.attention_bwd_bf16_ref(*args, **kw)
+            lims = [scaled(BWD_BF16_REF_TOL, w) for w in want]
+            err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+            if not all(torch.allclose(g.float(), w.float(), **lim)
+                       for g, w, lim in zip(got, want, lims)):
+                fail(f"{name} ({tag}) outside {lims} of attention_bwd_bf16_ref: {err}")
+            out.update(bf16_ref_max_abs_err=err, bf16_ref_limits=[lim["atol"] for lim in lims])
+        return out
     return {}
 
 
@@ -1345,7 +1379,9 @@ def headline_inputs(dev):
            attention_bwd(1, 4, 2048, 256, 1024, f32, shared_kv=True),
            attention_bwd(2, 4, 700, 128, 64, bf16, holes=True, shared_kv=True),
            attention_bwd(1, 2, 200, 64, 0, bf16, holes=True),
-           rglru_bwd(1, 4097, 4096), rglru_bwd(2, 33, 64), rglru_bwd(1, 130, 96)]
+           rglru_bwd(1, 4097, 4096), rglru_bwd(2, 33, 64), rglru_bwd(1, 130, 96),
+           # drawn last, so the cases above keep their inputs
+           attention_bwd(1, 4, 2048, 256, 1024, bf16)]
     return lm + bwd + [(k, tag, a, {}, None) for k, tag, a in dense + [
         ("delta_overlay.overlay", "h=8 P=16 S=65536 K=4", stacks(8, 16, 65536, 4)),
         ("delta_overlay.overlay", "h=8 P=16 S=65537 K=4", stacks(8, 16, 65537, 4)),

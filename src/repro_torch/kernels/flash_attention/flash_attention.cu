@@ -60,6 +60,23 @@
 // accumulator; each warp runs the online softmax of 8 rows.  The same tile
 // skip, tested against the block's 64 queries.  222,464 bytes of shared
 // memory at D = 256.
+//
+// The backward (the port's own: the reference differentiates its jnp
+// attention), three launches in stream order, also chosen by type.  With
+// P = exp(scale S - lse) under the masks, delta = rowsum(dO * O) and dS =
+// P (dP - delta): dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.  Bound:
+// 10 D operations a pair (S and dP recomputed, three updates); these
+// kernels do 14 D, as the dQ kernel computes S and dP again.
+// bfloat16 (tcb::): prep_kernel writes delta and each 64-row tile's
+// position range; dkdv_wgmma<DP> (a block per 64-key tile: the keys' K and
+// V once, the query tiles they may be seen by streamed through a ring)
+// and dq_wgmma<DP> (a block per 128 queries over the key tiles they may
+// see) run every product on wgmma fed by TMA, as fa_wgmma does; P^T, dS^T
+// and dS are rounded to bf16 only as A operands, dS is formed from the f32
+// P, every sum is f32.  float32 (bwd::): the same three steps on CUDA
+// cores, 32 x 32 tiles, exact to float32 rounding.  Neither uses atomics:
+// each accumulator sums its tiles in one fixed order, so two runs give the
+// same bits.
 #include <climits>
 #include <cstdint>
 #include <cuda.h>
@@ -476,6 +493,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the dynamic shared memory base rounded up to the 1024 bytes the
+// 128-byte swizzle repeats over (the layouts reserve the slack)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+// the byte offset of step kk (16 columns) in a K-major tile of `rows` rows
+__device__ __forceinline__ int kstep(int kk, int rows) {
+  return (kk / 4) * rows * ROW + (kk % 4) * 32;
+}
+// an m64n64 accumulator in bf16 as the A fragments of four k16 steps: the
+// columns 16 kk .. 16 kk + 15 are step kk's
+__device__ __forceinline__ void to_a(const float (&x)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1)
     fa_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
@@ -483,7 +524,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   using L = Layout<DP>;
   constexpr int ATOMS = DP / 64;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* const Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const Qs = align1024(smem_raw);
   uint8_t* const Ks = Qs + L::Q_BYTES;                // [STAGES][ATOMS][BK][ROW]
   uint8_t* const Vs = Ks + STAGES * L::KV_BYTES;      // [STAGES][ATOMS][BK][ROW]
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], qbar;
@@ -616,11 +657,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         float sc[32];
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          const int atom = kk / 4, off = (kk % 4) * 32;
-          mma_ss(sc, qd + ((atom * BQ * ROW + off) >> 4), kd + ((atom * BK * ROW + off) >> 4),
-                 kk > 0);
-        }
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_ss(sc, qd + (kstep(kk, BQ) >> 4), kd + (kstep(kk, BK) >> 4), kk > 0);
         wg_commit();
         wg_wait_all();
         reg_fence(sc);
@@ -676,14 +714,9 @@ __global__ void __launch_bounds__(THREADS, 1)
               }
         }
 
-        // P in bf16: the accumulator of columns 16 kk..16 kk + 15 is the
-        // A fragment of step kk
+        // P in bf16 as the A fragments of O += P V
         uint32_t pa[4][4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+        to_a(sc, pa);
 
         // O += P V: V's rows are keys (K), its 128-byte rows hold 64 of D (N)
         reg_fence(o);
@@ -732,7 +765,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               __floats2bfloat162_rn(o[32 * c + 4 * j + 2 * r] * inv,
                                     o[32 * c + 4 * j + 2 * r + 1] * inv);
     }
-    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    bar_sync(1 + wg, 128);
     __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
     const int chunks = p.D / 8;  // 16-byte chunks of a row
     for (int i = tid % 128; i < 64 * chunks; i += 128) {
@@ -799,7 +832,7 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// Backward: CUDA-core kernels, float32 or bfloat16 inputs
+// Backward, float32: CUDA-core kernels
 // ---------------------------------------------------------------------------
 
 namespace bwd {
@@ -811,16 +844,16 @@ constexpr int MAX_C = 8;      // output columns d = lane + 32 c, c < D / 32 roun
 constexpr int P_LD = BK + 4;  // row stride of the P / dS tiles (16-byte rows)
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
+  const float* dout;
   const float* lse;    // (B, H, Sq)
   float* delta;        // (B, H, Sq): rowsum(dO * O)
-  void* dq;            // (B, H, Sq, D) contiguous, the inputs' type
-  void* dk;            // (B, H, Sk, D) contiguous
-  void* dv;            // (B, H, Sk, D) contiguous
+  float* dq;           // (B, H, Sq, D) contiguous
+  float* dk;           // (B, H, Sk, D) contiguous
+  float* dv;           // (B, H, Sk, D) contiguous
   const int* q_pos;
   const int* k_pos;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, g_sb, g_sh,
@@ -828,14 +861,6 @@ struct Params {
   int H, Sq, Sk, D, causal, window;
   float scale;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ bool allowed(long long qp, long long kp, int causal, int window) {
   return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
@@ -847,27 +872,25 @@ size_t smem_bytes(int D) {
 }
 
 // delta[b, h, i] = sum_d dO[i, d] * O[i, d]: one warp a row
-template <typename T>
 __global__ void __launch_bounds__(THREADS) delta_kernel(const Params p) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int i = blockIdx.x * (THREADS / 32) + warp, h = blockIdx.y, b = blockIdx.z;
   if (i >= p.Sq) return;
-  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh + i * p.o_ss;
-  const T* g = static_cast<const T*>(p.dout) + b * p.g_sb + h * p.g_sh + i * p.g_ss;
+  const float* o = p.o + b * p.o_sb + h * p.o_sh + i * p.o_ss;
+  const float* g = p.dout + b * p.g_sb + h * p.g_sh + i * p.g_ss;
   float acc = 0.f;
-  for (int d = lane; d < p.D; d += 32) acc = fmaf(to_f32(o[d]), to_f32(g[d]), acc);
+  for (int d = lane; d < p.D; d += 32) acc = fmaf(o[d], g[d], acc);
   acc = warp_sum(acc);
   if (lane == 0) p.delta[((size_t)b * p.H + h) * p.Sq + i] = acc;
 }
 
 // rows [r0, r0 + n) of a (., D) tile with element stride ss into smem rows
-// of stride ld, as float32; rows past n are zero
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, long long ss, int r0,
-                                          int n, int D) {
+// of stride ld; rows past n are zero
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, long long ss,
+                                          int r0, int n, int D) {
   for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    dst[r * ld + d] = r < n ? to_f32(src[(long long)(r0 + r) * ss + d]) : 0.f;
+    dst[r * ld + d] = r < n ? src[(long long)(r0 + r) * ss + d] : 0.f;
   }
 }
 
@@ -926,7 +949,6 @@ __device__ __forceinline__ void pos_range(const int* pos, int n, bool keys, int*
 // dK, dV of 32 keys: a loop over the query tiles the keys may be seen by.
 // Thread (warp kr, lane) accumulates keys 4 kr .. 4 kr + 3 at columns
 // lane + 32 c, in registers, summing the query tiles in order: no atomics.
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   const int D = p.D, ld = D + 4;
@@ -945,10 +967,10 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(const Params p) {
   const int tid = threadIdx.x, lane = tid % 32, kr = tid / 32;
   const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
   const int nk = min(BK, p.Sk - k0);
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* gb = static_cast<const T*>(p.dout) + b * p.g_sb + h * p.g_sh;
+  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const float* gb = p.dout + b * p.g_sb + h * p.g_sh;
   const size_t row0 = ((size_t)b * p.H + h) * p.Sq;
 
   load_tile(Ks, ld, kb, p.k_ss, k0, nk, D);
@@ -1003,8 +1025,8 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(const Params p) {
     __syncthreads();  // the next tile's loads overwrite Qs, dOs, P and dS
   }
 
-  T* dkb = static_cast<T*>(p.dk) + (((size_t)b * p.H + h) * p.Sk) * D;
-  T* dvb = static_cast<T*>(p.dv) + (((size_t)b * p.H + h) * p.Sk) * D;
+  float* dkb = p.dk + (((size_t)b * p.H + h) * p.Sk) * D;
+  float* dvb = p.dv + (((size_t)b * p.H + h) * p.Sk) * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int k = 4 * kr + i;
@@ -1013,8 +1035,8 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(const Params p) {
     for (int c = 0; c < MAX_C; ++c) {
       const int d = lane + 32 * c;
       if (d < D) {
-        dkb[(size_t)(k0 + k) * D + d] = from_f32<T>(dk[i][c] * p.scale);
-        dvb[(size_t)(k0 + k) * D + d] = from_f32<T>(dv[i][c]);
+        dkb[(size_t)(k0 + k) * D + d] = dk[i][c] * p.scale;
+        dvb[(size_t)(k0 + k) * D + d] = dv[i][c];
       }
     }
   }
@@ -1023,7 +1045,6 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(const Params p) {
 // dQ of 32 queries: a loop over the key tiles they may see.  Thread (warp
 // qr, lane) accumulates queries 4 qr .. 4 qr + 3 at columns lane + 32 c;
 // dS is staged transposed so a thread reads its 4 queries as one float4.
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) dq_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   const int D = p.D, ld = D + 4;
@@ -1042,10 +1063,10 @@ __global__ void __launch_bounds__(THREADS, 1) dq_kernel(const Params p) {
   const int tid = threadIdx.x, lane = tid % 32, qr = tid / 32;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int nq = min(BQ, p.Sq - q0);
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* gb = static_cast<const T*>(p.dout) + b * p.g_sb + h * p.g_sh;
+  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const float* gb = p.dout + b * p.g_sb + h * p.g_sh;
   const size_t row0 = ((size_t)b * p.H + h) * p.Sq;
 
   load_tile(Qs, ld, qb, p.q_ss, q0, nq, D);
@@ -1096,7 +1117,7 @@ __global__ void __launch_bounds__(THREADS, 1) dq_kernel(const Params p) {
     __syncthreads();  // the next tile's loads overwrite K, V and dS
   }
 
-  T* dqb = static_cast<T*>(p.dq) + row0 * D;
+  float* dqb = p.dq + row0 * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int q = 4 * qr + i;
@@ -1104,31 +1125,653 @@ __global__ void __launch_bounds__(THREADS, 1) dq_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < MAX_C; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) dqb[(size_t)(q0 + q) * D + d] = from_f32<T>(dq[i][c] * p.scale);
+      if (d < D) dqb[(size_t)(q0 + q) * D + d] = dq[i][c] * p.scale;
     }
   }
 }
 
-template <typename T>
 int launch(const Params& p, int B, cudaStream_t st) {
   const size_t smem = smem_bytes(p.D);
-  cudaError_t e = cudaFuncSetAttribute(dkdv_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  delta_kernel<T><<<dim3((p.Sq + THREADS / 32 - 1) / (THREADS / 32), p.H, B), THREADS, 0, st>>>(p);
+  delta_kernel<<<dim3((p.Sq + THREADS / 32 - 1) / (THREADS / 32), p.H, B), THREADS, 0, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dkdv_kernel<T><<<dim3((p.Sk + BK - 1) / BK, p.H, B), THREADS, smem, st>>>(p);
+  dkdv_kernel<<<dim3((p.Sk + BK - 1) / BK, p.H, B), THREADS, smem, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dq_kernel<T><<<dim3((p.Sq + BQ - 1) / BQ, p.H, B), THREADS, smem, st>>>(p);
+  dq_kernel<<<dim3((p.Sq + BQ - 1) / BQ, p.H, B), THREADS, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// Backward, bfloat16: wgmma kernels fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tcb {
+
+using tc::ROW;
+using tc::LOG2E;
+using tc::mbar_init;
+using tc::mbar_expect_tx;
+using tc::mbar_arrive;
+using tc::mbar_wait;
+using tc::tma_load;
+using tc::sw128_desc;
+using tc::wg_fence;
+using tc::wg_commit;
+using tc::wg_wait_all;
+using tc::reg_fence;
+using tc::mma_ss;
+using tc::mma_rs;
+using tc::align1024;
+using tc::bar_sync;
+using tc::bar_arrive;
+using tc::kstep;
+using tc::to_a;
+
+constexpr int BM = 64;            // rows of every streamed tile: 64 queries or 64 keys
+constexpr int QB = 128;           // queries of a dQ block: a warpgroup's 64 rows each
+constexpr int STAGES = 2;         // ring depth: (Q, dO) tiles of dK/dV, K tiles of dQ
+constexpr int THREADS = 384;      // two consumer warpgroups and the producer's
+constexpr int PREP_THREADS = 256;
+constexpr int READY = 1, FREE = 2;  // named barriers of dK/dV's P^T hand-over
+
+struct Params {
+  const __nv_bfloat16* o;
+  const __nv_bfloat16* dout;
+  const float* lse;  // (B, H, Sq)
+  float* delta;      // (B, H, Sq): rowsum(dO * O)
+  int4* ranges;      // per 64-row tile, query tiles then key tiles: {min, max, hole, 0}
+  __nv_bfloat16* dq;  // (B, H, Sq, D) contiguous
+  __nv_bfloat16* dk;  // (B, H, Sk, D) contiguous
+  __nv_bfloat16* dv;
+  const int* q_pos;
+  const int* k_pos;
+  long long o_sb, o_sh, o_ss, g_sb, g_sh, g_ss;
+  int H, Sq, Sk, D, causal, window, kv_heads, kv_batch;
+  float scale;
+};
+
+// a row's lse in log2 units; +inf (p = 0, no gradient) past Sq or for a
+// row with no key (lse = -inf)
+__device__ __forceinline__ float lse2_of(const Params& p, size_t row0, int row) {
+  if (row >= p.Sq) return __int_as_float(0x7f800000);
+  const float l = p.lse[row0 + row];
+  return l > neg_inf() ? l * LOG2E : __int_as_float(0x7f800000);
+}
+
+// Blocks below row_blocks: delta[b, h, i] = sum_d dO[i, d] O[i, d], a warp
+// a row, 16 bytes a lane.  The rest (at b = h = 0): each 64-row tile's
+// position range, a warp a tile: query tiles {min, max} of q_pos over rows
+// < Sq; key tiles {min, max} of the valid k_pos (INT_MAX, INT_MIN if none)
+// and whether a slot is a hole or past Sk.  Every block of the backward
+// reads these instead of scanning the positions itself.
+__global__ void __launch_bounds__(PREP_THREADS) prep_kernel(const Params p, int row_blocks) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int WARPS = PREP_THREADS / 32;
+  if ((int)blockIdx.x < row_blocks) {
+    const int i = blockIdx.x * WARPS + warp, h = blockIdx.y, b = blockIdx.z;
+    if (i >= p.Sq) return;
+    const __nv_bfloat16* o = p.o + b * p.o_sb + h * p.o_sh + i * p.o_ss;
+    const __nv_bfloat16* g = p.dout + b * p.g_sb + h * p.g_sh + i * p.g_ss;
+    float acc = 0.f;
+    for (int c = lane; c < p.D / 8; c += 32) {
+      const uint4 a = *reinterpret_cast<const uint4*>(o + 8 * c);
+      const uint4 d = *reinterpret_cast<const uint4*>(g + 8 * c);
+      const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 x = __bfloat1622float2(ap[j]), y = __bfloat1622float2(dp[j]);
+        acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
+      }
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) p.delta[((size_t)b * p.H + h) * p.Sq + i] = acc;
+    return;
+  }
+  if (blockIdx.y != 0 || blockIdx.z != 0) return;
+  const int nqt = (p.Sq + BM - 1) / BM, nkt = (p.Sk + BM - 1) / BM;
+  const int t = ((int)blockIdx.x - row_blocks) * WARPS + warp;
+  if (t >= nqt + nkt) return;
+  const bool keys = t >= nqt;
+  const int r0 = (keys ? t - nqt : t) * BM, n = keys ? p.Sk : p.Sq;
+  const int* pos = keys ? p.k_pos : p.q_pos;
+  int mn = INT_MAX, mx = INT_MIN, hole = 0;
+  for (int j = lane; j < BM; j += 32) {
+    const int r = r0 + j;
+    const int v = r < n ? pos[r] : -1;
+    if (keys ? v >= 0 : r < n) {
+      mn = min(mn, v);
+      mx = max(mx, v);
+    } else {
+      hole = 1;
+    }
+  }
+  warp_min_max(mn, mx);
+  hole = __any_sync(0xffffffffu, hole);
+  if (lane == 0) p.ranges[t] = make_int4(mn, mx, keys ? hole : 0, 0);
+}
+
+// ---- dK, dV ----
+// One block per (64-key tile, h, b).  The producer warp loads the K and V
+// tiles once, then streams the query tiles the keys may be seen by (their
+// Q and dO tiles, positions, lse and delta) through a 2-stage ring.  The
+// products run transposed, keys as rows: S^T = K Q^T and dP^T = V dO^T,
+// so P^T and dS^T land in registers as wgmma A fragments, and dV += P^T dO,
+// dK += dS^T Q read dO and Q MN-major (the transpose bit) from the same
+// tiles.  A 64 x DP f32 accumulator is DP / 2 registers a thread, so the
+// warpgroups split the work: warpgroup 0 computes S^T, P^T (written to
+// shared memory in f32, fragment order) and dV; warpgroup 1 dP^T, then dS^T
+// from that P^T, and dK.  Each does two of the four products.
+template <int DP> struct KVLayout {
+  static constexpr int TILE = BM * DP * 2;   // one 64-row bf16 tile
+  static constexpr int P_BYTES = BM * BM * 4;
+  static constexpr int SMEM = 2 * TILE + STAGES * 2 * TILE + P_BYTES + 1024;  // + alignment
+};
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    dkdv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+               const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+               const Params p) {
+  using L = KVLayout<DP>;
+  constexpr int ATOMS = DP / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const Ks = align1024(smem_raw);  // [ATOMS][BM][ROW]
+  uint8_t* const Vs = Ks + L::TILE;
+  uint8_t* const Rs = Vs + L::TILE;  // stage s: Q at Rs + 2 s TILE, dO a TILE after
+  float* const Ps = reinterpret_cast<float*>(Rs + STAGES * 2 * L::TILE);  // [32][128]
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], kvbar;
+  __shared__ int slot[STAGES][4];        // query tile (-1: no more), q min, q max
+  __shared__ int slot_qpos[STAGES][BM];  // 0 past Sq
+  __shared__ float slot_lse[STAGES][BM];  // lse2_of
+  __shared__ float slot_delta[STAGES][BM];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, k0 = kt * BM;
+  const int kvh = p.kv_heads == 1 ? 0 : h, kvb = p.kv_batch == 1 ? 0 : b;
+  const int nqt = (p.Sq + BM - 1) / BM;
+  const size_t row0 = ((size_t)b * p.H + h) * p.Sq;
+  const int4 kr = p.ranges[nqt + kt];  // the keys' valid min, max, and a hole
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_init(&kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- producer warpgroup: one warp issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp != 8) return;
+    if (lane == 0) {
+      mbar_expect_tx(&kvbar, 2 * L::TILE);
+      for (int c = 0; c < ATOMS; ++c) {
+        tma_load(Ks + c * BM * ROW, &kmap, &kvbar, 64 * c, k0, kvh, kvb);
+        tma_load(Vs + c * BM * ROW, &vmap, &kvbar, 64 * c, k0, kvh, kvb);
+      }
+    }
+    // the query tiles, 32 at a time: lane i tests tile t0 + i
+    int n = 0;
+    for (int t0 = 0; t0 < nqt; t0 += 32) {
+      int4 qr = make_int4(INT_MAX, INT_MIN, 0, 0);
+      if (t0 + lane < nqt) qr = p.ranges[t0 + lane];
+      unsigned vis = __ballot_sync(
+          0xffffffffu, !tile_hidden(kr.x, kr.y, qr.x, qr.y, p.causal, p.window));
+      while (vis) {
+        const int i = __ffs(vis) - 1;
+        vis &= vis - 1;
+        const int tt = t0 + i;
+        const int qmin = __shfl_sync(0xffffffffu, qr.x, i);
+        const int qmax = __shfl_sync(0xffffffffu, qr.y, i);
+        int qp[2];
+        float ls[2], dl[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = tt * BM + lane + 32 * e;
+          qp[e] = row < p.Sq ? p.q_pos[row] : 0;
+          ls[e] = lse2_of(p, row0, row);
+          dl[e] = row < p.Sq ? p.delta[row0 + row] : 0.f;
+        }
+        const int s = n % STAGES;
+        if (lane == 0) mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+        __syncwarp();
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          slot_qpos[s][lane + 32 * e] = qp[e];
+          slot_lse[s][lane + 32 * e] = ls[e];
+          slot_delta[s][lane + 32 * e] = dl[e];
+        }
+        if (lane == 0) {
+          slot[s][0] = tt;
+          slot[s][1] = qmin;
+          slot[s][2] = qmax;
+        }
+        __syncwarp();
+        if (lane == 0) {  // the arrival publishes the slot with the tiles
+          uint8_t* const qs = Rs + s * 2 * L::TILE;
+          mbar_expect_tx(&full[s], 2 * L::TILE);
+          for (int c = 0; c < ATOMS; ++c) {
+            tma_load(qs + c * BM * ROW, &qmap, &full[s], 64 * c, tt * BM, h, b);
+            tma_load(qs + L::TILE + c * BM * ROW, &gmap, &full[s], 64 * c, tt * BM, h, b);
+          }
+        }
+        __syncwarp();
+        ++n;
+      }
+    }
+    if (lane == 0) {  // a last slot with no tile ends the stream
+      const int s = n % STAGES;
+      mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+      slot[s][0] = -1;
+      mbar_arrive(&full[s]);
+    }
+  } else {
+    // ---- consumer warpgroups: the same 64 keys, two products each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = warp / 4, quad = lane % 4, t = tid % 128;
+    const int r0 = (warp % 4) * 16 + lane / 4;  // this thread's keys: r0, r0 + 8
+    // key r0 + 8 r is seen by query q iff qlo[r] <= q_pos[q] <= qhi[r]
+    int qlo[2], qhi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + r0 + 8 * r;
+      const int kp = key < p.Sk ? p.k_pos[key] : -1;
+      qlo[r] = kp < 0 ? INT_MAX : (p.causal ? kp : INT_MIN);
+      qhi[r] = kp < 0 ? INT_MIN
+                      : (p.window > 0 ? (int)min((long long)kp + p.window - 1, (long long)INT_MAX)
+                                      : INT_MAX);
+    }
+    const float sl2 = p.scale * LOG2E;
+    float acc[DP / 2];  // warpgroup 0: dV; 1: dK before the scale
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    mbar_wait(&kvbar, 0);
+
+    int n = 0;
+    for (;; ++n) {
+      const int s = n % STAGES;
+      mbar_wait(&full[s], (n / STAGES) & 1);
+      if (slot[s][0] < 0) break;
+      uint8_t* const Qt = Rs + s * 2 * L::TILE;
+      uint8_t* const Gt = Qt + L::TILE;
+      uint32_t fa[4][4];  // P^T or dS^T in bf16: the A fragments of the update
+      if (wg == 0) {
+        // every (key, query) pair of the tile allowed: no per-element mask
+        const bool whole = !kr.z && (!p.causal || kr.y <= slot[s][1]) &&
+                           (p.window <= 0 || (long long)kr.x > (long long)slot[s][2] - p.window);
+        const uint64_t ad = sw128_desc(Ks, 16, 1024), bd = sw128_desc(Qt, 16, 1024);
+        float sc[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_ss(sc, ad + (kstep(kk, BM) >> 4), bd + (kstep(kk, BM) >> 4), kk > 0);
+        wg_commit();
+        wg_wait_all();
+        reg_fence(sc);
+        // P^T: sc[4 j + 2 r + e] is key r0 + 8 r, query 8 j + 2 quad + e
+        const int* qpos = slot_qpos[s] + 2 * quad;
+        const float* ls = slot_lse[s] + 2 * quad;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float x = sc[4 * j + 2 * r + e] * sl2 - ls[8 * j + e];
+              if (!whole) {
+                const int qp = qpos[8 * j + e];
+                if (!(qp >= qlo[r] && qp <= qhi[r])) x = neg_inf();
+              }
+              sc[4 * j + 2 * r + e] = exp2f(x);
+            }
+        // hand P^T to warpgroup 1 once it has read the last tile's
+        if (n > 0) bar_sync(FREE, 256);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) Ps[i * 128 + t] = sc[i];
+        bar_arrive(READY, 256);
+        to_a(sc, fa);
+        // dV += P^T dO: dO's rows are queries (K), its 128-byte rows 64 of D (N)
+        const uint64_t md = sw128_desc(Gt, BM * ROW, 1024);
+        reg_fence(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_rs<DP>(acc, fa[kk], md + ((kk * 16 * ROW) >> 4));
+      } else {
+        const uint64_t ad = sw128_desc(Vs, 16, 1024), bd = sw128_desc(Gt, 16, 1024);
+        float dp[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_ss(dp, ad + (kstep(kk, BM) >> 4), bd + (kstep(kk, BM) >> 4), kk > 0);
+        wg_commit();
+        wg_wait_all();
+        reg_fence(dp);
+        // dS^T = P^T (dP^T - delta), P^T in f32 as warpgroup 0 left it
+        const float* dl = slot_delta[s] + 2 * quad;
+        bar_sync(READY, 256);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * r + e;
+              dp[i] = Ps[i * 128 + t] * (dp[i] - dl[8 * j + e]);
+            }
+        bar_arrive(FREE, 256);
+        to_a(dp, fa);
+        // dK += dS^T Q, Q read MN-major
+        const uint64_t md = sw128_desc(Qt, BM * ROW, 1024);
+        reg_fence(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_rs<DP>(acc, fa[kk], md + ((kk * 16 * ROW) >> 4));
+      }
+      wg_commit();
+      wg_wait_all();
+      reg_fence(acc);
+      mbar_arrive(&empty[s]);  // both warpgroups have read the stage's Q and dO
+    }
+    if (wg == 0 && n > 0) bar_sync(FREE, 256);  // warpgroup 1's last arrival
+
+    // dV (warpgroup 0) or scale * dK (1) in bf16 to the K or V tile, which
+    // only this warpgroup read, in its swizzled layout; then out 16 bytes a
+    // thread, each key's D * 2 bytes contiguous
+    uint8_t* const Os = wg == 0 ? Ks : Vs;
+    const float mul = wg == 0 ? 1.f : p.scale;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = r0 + 8 * r;
+#pragma unroll
+      for (int c = 0; c < ATOMS; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(Os + c * BM * ROW + rr * ROW +
+                                             ((j ^ (rr % 8)) * 16) + 4 * quad) =
+              __floats2bfloat162_rn(acc[32 * c + 4 * j + 2 * r] * mul,
+                                    acc[32 * c + 4 * j + 2 * r + 1] * mul);
+    }
+    bar_sync(3 + wg, 128);
+    __nv_bfloat16* const out = (wg == 0 ? p.dv : p.dk) + ((size_t)b * p.H + h) * p.Sk * p.D;
+    const int chunks = p.D / 8;
+    for (int i = t; i < BM * chunks; i += 128) {
+      const int rr = i / chunks, k = i % chunks, key = k0 + rr;
+      if (key < p.Sk)
+        *reinterpret_cast<uint4*>(out + (size_t)key * p.D + 8 * k) =
+            *reinterpret_cast<const uint4*>(Os + (k / 8) * BM * ROW + rr * ROW +
+                                            (((k % 8) ^ (rr % 8)) * 16));
+    }
+  }
+}
+
+// ---- dQ ----
+// One block per (128-query tile, h, b): the forward's structure with a
+// second product.  Q and dO stay resident (64 KB each at DP = 256); the
+// producer streams the key tiles the queries may see, K through a 2-slot
+// ring and V through one slot: V is released once dP is computed, so the
+// next V loads while dS and dQ are, and K after dQ += dS K.  Two consumer
+// warpgroups own 64 query rows each: S = Q K^T and dP = dO V^T on wgmma
+// from shared memory, P and dS = P (dP - delta) in registers, dQ += dS K
+// with K read MN-major.  Shared memory at DP = 256: 64 + 64 + 3 x 32 KB.
+template <int DP> struct QLayout {
+  static constexpr int TILE = BM * DP * 2;
+  static constexpr int Q_BYTES = QB * DP * 2;
+  static constexpr int SMEM = 2 * Q_BYTES + (STAGES + 1) * TILE + 1024;  // + alignment
+};
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+             const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+             const Params p) {
+  using L = QLayout<DP>;
+  constexpr int ATOMS = DP / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const Qs = align1024(smem_raw);  // [ATOMS][QB][ROW]
+  uint8_t* const Gs = Qs + L::Q_BYTES;      // dO, the same
+  uint8_t* const Ks = Gs + L::Q_BYTES;      // [STAGES] x [ATOMS][BM][ROW]
+  uint8_t* const Vs = Ks + STAGES * L::TILE;
+  __shared__ __align__(8) uint64_t kfull[STAGES], kempty[STAGES], vfull, vempty, qbar;
+  // per K slot: the tile (-1: no more), its valid key range, whether it
+  // holds a hole, and its 64 key positions (-1 past Sk)
+  __shared__ int kslot[STAGES][4];
+  __shared__ int kslot_kpos[STAGES][BM];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q0 = blockIdx.x * QB, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = p.kv_heads == 1 ? 0 : h, kvb = p.kv_batch == 1 ? 0 : b;
+  const int nqt = (p.Sq + BM - 1) / BM, nkt = (p.Sk + BM - 1) / BM;
+  const int qt = 2 * blockIdx.x;
+  const int4 qa = p.ranges[qt];
+  const int4 qb = qt + 1 < nqt ? p.ranges[qt + 1] : make_int4(INT_MAX, INT_MIN, 0, 0);
+  const int bq_min = min(qa.x, qb.x), bq_max = max(qa.y, qb.y);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&kempty[s], 2 * 128);
+    }
+    mbar_init(&vfull, 1);
+    mbar_init(&vempty, 2 * 128);
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp != 8) return;
+    if (lane == 0) {  // Q and dO, each as two boxes of 64 rows (one if 64 reach Sq)
+      const int halves = q0 + BM < p.Sq ? 2 : 1;
+      mbar_expect_tx(&qbar, halves * 2 * L::TILE);
+      for (int c = 0; c < ATOMS; ++c)
+        for (int e = 0; e < halves; ++e) {
+          const int at = c * QB * ROW + e * BM * ROW;
+          tma_load(Qs + at, &qmap, &qbar, 64 * c, q0 + e * BM, h, b);
+          tma_load(Gs + at, &gmap, &qbar, 64 * c, q0 + e * BM, h, b);
+        }
+    }
+    int n = 0;
+    for (int t0 = 0; t0 < nkt; t0 += 32) {
+      int4 kr = make_int4(INT_MAX, INT_MIN, 0, 0);
+      if (t0 + lane < nkt) kr = p.ranges[nqt + t0 + lane];
+      unsigned vis = __ballot_sync(
+          0xffffffffu, !tile_hidden(kr.x, kr.y, bq_min, bq_max, p.causal, p.window));
+      while (vis) {
+        const int i = __ffs(vis) - 1;
+        vis &= vis - 1;
+        const int tt = t0 + i;
+        const int kmin = __shfl_sync(0xffffffffu, kr.x, i);
+        const int kmax = __shfl_sync(0xffffffffu, kr.y, i);
+        const int hole = __shfl_sync(0xffffffffu, kr.z, i);
+        const int j = tt * BM + lane;
+        const int kp0 = j < p.Sk ? p.k_pos[j] : -1;
+        const int kp1 = j + 32 < p.Sk ? p.k_pos[j + 32] : -1;
+        const int s = n % STAGES;
+        if (lane == 0) mbar_wait(&kempty[s], ((n / STAGES) & 1) ^ 1);
+        __syncwarp();
+        kslot_kpos[s][lane] = kp0;
+        kslot_kpos[s][lane + 32] = kp1;
+        if (lane == 0) {
+          kslot[s][0] = tt;
+          kslot[s][1] = kmin;
+          kslot[s][2] = kmax;
+          kslot[s][3] = hole;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_expect_tx(&kfull[s], L::TILE);
+          for (int c = 0; c < ATOMS; ++c)
+            tma_load(Ks + s * L::TILE + c * BM * ROW, &kmap, &kfull[s], 64 * c, tt * BM, kvh,
+                     kvb);
+          mbar_wait(&vempty, (n & 1) ^ 1);  // the last tile's dP is done
+          mbar_expect_tx(&vfull, L::TILE);
+          for (int c = 0; c < ATOMS; ++c)
+            tma_load(Vs + c * BM * ROW, &vmap, &vfull, 64 * c, tt * BM, kvh, kvb);
+        }
+        __syncwarp();
+        ++n;
+      }
+    }
+    if (lane == 0) {
+      const int s = n % STAGES;
+      mbar_wait(&kempty[s], ((n / STAGES) & 1) ^ 1);
+      kslot[s][0] = -1;
+      mbar_arrive(&kfull[s]);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = warp / 4, quad = lane % 4;
+    const int4 wr = wg == 0 ? qa : qb;  // this warpgroup's 64 rows' range
+    const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;  // rows r0, r0 + 8 of the block
+    const size_t row0 = ((size_t)b * p.H + h) * p.Sq;
+    int hi[2], lo[2];  // key k is allowed for the row iff 0 <= k <= hi and k > lo
+    float ls[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + r0 + 8 * r;
+      hi[r] = INT_MAX;
+      lo[r] = INT_MIN;
+      if (row < p.Sq) {
+        const long long qp = p.q_pos[row];
+        if (p.causal) hi[r] = (int)qp;
+        if (p.window > 0) lo[r] = (int)max(qp - p.window, (long long)INT_MIN);
+      }
+      ls[r] = lse2_of(p, row0, row);
+      dl[r] = row < p.Sq ? p.delta[row0 + row] : 0.f;
+    }
+    const float sl2 = p.scale * LOG2E;
+    float acc[DP / 2];  // dQ before the scale
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    mbar_wait(&qbar, 0);
+
+    for (int n = 0;; ++n) {
+      const int s = n % STAGES;
+      mbar_wait(&kfull[s], (n / STAGES) & 1);
+      if (kslot[s][0] < 0) break;
+      const int mn = kslot[s][1], mx = kslot[s][2], hole = kslot[s][3];
+      mbar_wait(&vfull, n & 1);
+      if (!tile_hidden(mn, mx, wr.x, wr.y, p.causal, p.window)) {
+        const bool whole = !hole && (!p.causal || mx <= wr.x) &&
+                           (p.window <= 0 || (long long)mn > (long long)wr.y - p.window);
+        const uint64_t qd = sw128_desc(Qs + wg * 64 * ROW, 16, 1024);
+        const uint64_t gd = sw128_desc(Gs + wg * 64 * ROW, 16, 1024);
+        const uint64_t kd = sw128_desc(Ks + s * L::TILE, 16, 1024);
+        const uint64_t vd = sw128_desc(Vs, 16, 1024);
+        float sc[32], dp[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_ss(sc, qd + (kstep(kk, QB) >> 4), kd + (kstep(kk, BM) >> 4), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_ss(dp, gd + (kstep(kk, QB) >> 4), vd + (kstep(kk, BM) >> 4), kk > 0);
+        wg_commit();
+        wg_wait_all();
+        reg_fence(sc);
+        reg_fence(dp);
+        mbar_arrive(&vempty);
+        // sc[4 j + 2 r + e] is row r0 + 8 r, key 8 j + 2 quad + e
+        const int* kpos = kslot_kpos[s] + 2 * quad;
+        uint32_t fa[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * r + e;
+              float x = sc[i] * sl2 - ls[r];
+              if (!whole) {
+                const int k = kpos[8 * j + e];
+                if (!(k >= 0 && k <= hi[r] && k > lo[r])) x = neg_inf();
+              }
+              dp[i] = exp2f(x) * (dp[i] - dl[r]);
+            }
+        to_a(dp, fa);
+        // dQ += dS K: K's rows are keys (K), its 128-byte rows 64 of D (N)
+        const uint64_t md = sw128_desc(Ks + s * L::TILE, BM * ROW, 1024);
+        reg_fence(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_rs<DP>(acc, fa[kk], md + ((kk * 16 * ROW) >> 4));
+        wg_commit();
+        wg_wait_all();
+        reg_fence(acc);
+      } else {
+        mbar_arrive(&vempty);
+      }
+      mbar_arrive(&kempty[s]);
+    }
+
+    // scale * dQ in bf16 to this warpgroup's own rows of the Q tile, then
+    // out 16 bytes a thread
+    uint8_t* const Os = Qs + wg * 64 * ROW;  // atom c at Os + c * QB * ROW
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = r0 % 64 + 8 * r;
+#pragma unroll
+      for (int c = 0; c < ATOMS; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(Os + c * QB * ROW + rr * ROW +
+                                             ((j ^ (rr % 8)) * 16) + 4 * quad) =
+              __floats2bfloat162_rn(acc[32 * c + 4 * j + 2 * r] * p.scale,
+                                    acc[32 * c + 4 * j + 2 * r + 1] * p.scale);
+    }
+    bar_sync(1 + wg, 128);
+    __nv_bfloat16* const out = p.dq + row0 * p.D;
+    const int chunks = p.D / 8;
+    for (int i = tid % 128; i < 64 * chunks; i += 128) {
+      const int rr = i / chunks, k = i % chunks, row = q0 + wg * 64 + rr;
+      if (row < p.Sq)
+        *reinterpret_cast<uint4*>(out + (size_t)row * p.D + 8 * k) =
+            *reinterpret_cast<const uint4*>(Os + (k / 8) * QB * ROW + rr * ROW +
+                                            (((k % 8) ^ (rr % 8)) * 16));
+    }
+  }
+}
+
+// rowsum(dO * O) and the tiles' position ranges, then dK/dV, then dQ, in
+// stream order
+template <int DP>
+int launch(const CUtensorMap& qm, const CUtensorMap& gm, const CUtensorMap& km,
+           const CUtensorMap& vm, const Params& p, int B, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(dkdv_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       KVLayout<DP>::SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dq_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             QLayout<DP>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int WARPS = PREP_THREADS / 32;
+  const int nqt = (p.Sq + BM - 1) / BM, nkt = (p.Sk + BM - 1) / BM;
+  const int row_blocks = (p.Sq + WARPS - 1) / WARPS;
+  const int range_blocks = (nqt + nkt + WARPS - 1) / WARPS;
+  prep_kernel<<<dim3(row_blocks + range_blocks, p.H, B), PREP_THREADS, 0, st>>>(p, row_blocks);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dkdv_wgmma<DP><<<dim3(nkt, p.H, B), THREADS, KVLayout<DP>::SMEM, st>>>(qm, gm, km, vm, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dq_wgmma<DP><<<dim3((p.Sq + QB - 1) / QB, p.H, B), THREADS, QLayout<DP>::SMEM, st>>>(
+      qm, gm, km, vm, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tcb
 
 }  // namespace
 
@@ -1197,31 +1840,70 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v, voi
   return tc::launch<256>(qm, km, vm, p, B, H, st);
 }
 
-// The backward of either kernel.  q, o, dout: (B, H, Sq, D); k, v:
-// (B, H, Sk, D); each with element strides (sb, sh, ss) (a stride-0 head
-// axis allowed: every head's own dK, dV are written) and unit stride on
-// D; lse: the forward's (B, H, Sq) float32 log-sum-exp; delta: (B, H, Sq)
-// float32 scratch; dq (B, H, Sq, D), dk and dv (B, H, Sk, D) contiguous, of
-// the inputs' type (bf16 != 0: bfloat16, else float32).
-int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
-                               const void* dout, const void* lse, const void* q_pos,
-                               const void* k_pos, void* delta, void* dq, void* dk, void* dv,
-                               int bf16, int B, int H, int Sq, int Sk, int D, long long q_sb,
-                               long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-                               long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-                               long long o_sb, long long o_sh, long long o_ss, long long g_sb,
-                               long long g_sh, long long g_ss, int causal, int window,
-                               double scale, void* stream) {
+// The float32 backward.  q, o, dout: (B, H, Sq, D); k, v: (B, H, Sk, D);
+// each with element strides (sb, sh, ss) (a stride-0 head axis allowed:
+// every head's own dK, dV are written) and unit stride on D; lse: the
+// forward's (B, H, Sq) float32 log-sum-exp; delta: (B, H, Sq) float32
+// scratch; dq (B, H, Sq, D), dk and dv (B, H, Sk, D) contiguous float32.
+int flash_attention_bwd_f32_launch(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const void* lse, const void* q_pos,
+                                   const void* k_pos, void* delta, void* dq, void* dk, void* dv,
+                                   int B, int H, int Sq, int Sk, int D, long long q_sb,
+                                   long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+                                   long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+                                   long long o_sb, long long o_sh, long long o_ss, long long g_sb,
+                                   long long g_sh, long long g_ss, int causal, int window,
+                                   double scale, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 || D < 16 ||
       D > 32 * bwd::MAX_C || D % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const bwd::Params p{q, k, v, o, dout, static_cast<const float*>(lse),
-                      static_cast<float*>(delta), dq, dk, dv,
+  const bwd::Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+                      static_cast<const float*>(v), static_cast<const float*>(o),
+                      static_cast<const float*>(dout), static_cast<const float*>(lse),
+                      static_cast<float*>(delta), static_cast<float*>(dq),
+                      static_cast<float*>(dk), static_cast<float*>(dv),
                       static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
                       q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
                       g_sb, g_sh, g_ss, H, Sq, Sk, D, causal, window, (float)scale};
+  return bwd::launch(p, B, (cudaStream_t)stream);
+}
+
+// The bfloat16 backward.  q, o, dout: (B, H, Sq, D); k, v: (Bk, Hk, Sk, D)
+// as for the forward (a length-1 axis shared); element strides each a
+// multiple of 8 and 16-byte aligned bases (the TMA maps', and o's and
+// dout's 16-byte loads); lse: the forward's (B, H, Sq) float32
+// log-sum-exp; delta: (B, H, Sq) float32 scratch; ranges: int32 scratch of
+// 4 * (ceil(Sq / 64) + ceil(Sk / 64)); dq (B, H, Sq, D), dk and dv (B, H,
+// Sk, D) contiguous bfloat16, every head's dK and dV written.
+int flash_attention_bwd_bf16_launch(const void* q, const void* k, const void* v, const void* o,
+                                    const void* dout, const void* lse, const void* q_pos,
+                                    const void* k_pos, void* delta, void* ranges, void* dq,
+                                    void* dk, void* dv, int B, int H, int Bk, int Hk, int Sq,
+                                    int Sk, int D, long long q_sb, long long q_sh, long long q_ss,
+                                    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                                    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+                                    long long o_ss, long long g_sb, long long g_sh, long long g_ss,
+                                    int causal, int window, double scale, void* stream) {
+  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 || D < 16 || D > 256 ||
+      D % 16 != 0 || (Bk != 1 && Bk != B) || (Hk != 1 && Hk != H))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, gm, km, vm;
+  int err = tc::make_map(&qm, q, B, H, Sq, D, q_sb, q_sh, q_ss, tcb::BM);
+  if (!err) err = tc::make_map(&gm, dout, B, H, Sq, D, g_sb, g_sh, g_ss, tcb::BM);
+  if (!err) err = tc::make_map(&km, k, Bk, Hk, Sk, D, k_sb, k_sh, k_ss, tcb::BM);
+  if (!err) err = tc::make_map(&vm, v, Bk, Hk, Sk, D, v_sb, v_sh, v_ss, tcb::BM);
+  if (err) return err;
+  const tcb::Params p{static_cast<const __nv_bfloat16*>(o),
+                      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+                      static_cast<float*>(delta), static_cast<int4*>(ranges),
+                      static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
+                      static_cast<__nv_bfloat16*>(dv), static_cast<const int*>(q_pos),
+                      static_cast<const int*>(k_pos), o_sb, o_sh, o_ss, g_sb, g_sh, g_ss,
+                      H, Sq, Sk, D, causal, window, Hk, Bk, (float)scale};
   const cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? bwd::launch<__nv_bfloat16>(p, B, st) : bwd::launch<float>(p, B, st);
+  if (D <= 64) return tcb::launch<64>(qm, gm, km, vm, p, B, st);
+  if (D <= 128) return tcb::launch<128>(qm, gm, km, vm, p, B, st);
+  return tcb::launch<256>(qm, gm, km, vm, p, B, st);
 }
 
 }  // extern "C"

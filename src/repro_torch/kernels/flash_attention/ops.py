@@ -21,8 +21,11 @@ On the card a call that needs a gradient goes through ``FlashAttention``,
 an ``autograd.Function``: its forward also writes each row's
 log-sum-exp (``flash_attention_lse``), and its backward is three more
 kernels (``flash_attention_bwd``: the rows' ``rowsum(dO * O)``, dK and dV
-over key tiles, dQ over query tiles), deterministic, on CUDA cores in
-float32 for float32 and bfloat16 inputs.  K and V come in expanded to H
+over key tiles, dQ over query tiles), deterministic, chosen by type as
+the forward is: bfloat16 on ``wgmma`` fed by TMA (P^T, dS^T and dS
+rounded to bfloat16 only as the products' A operands, every sum in
+float32; ``ref.attention_bwd_bf16_ref`` mirrors it), float32 on CUDA
+cores, exact to float32 rounding.  K and V come in expanded to H
 heads (a stride-0 head axis for one KV head): the backward writes every
 head's dK and dV, and autograd's ``expand`` backward sums them.
 ``LAUNCHES["bwd"]`` counts backward calls that reach the card.
@@ -42,7 +45,8 @@ _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_doub
 _SIGNATURES = {
     "flash_attention_f32_launch": [_P] * 7 + [_I] * 5 + [_L] * 12 + [_I, _I, _D, _P],
     "flash_attention_bf16_launch": [_P] * 7 + [_I] * 7 + [_L] * 12 + [_I, _I, _D, _P],
-    "flash_attention_bwd_launch": [_P] * 12 + [_I] * 6 + [_L] * 15 + [_I, _I, _D, _P],
+    "flash_attention_bwd_f32_launch": [_P] * 12 + [_I] * 5 + [_L] * 15 + [_I, _I, _D, _P],
+    "flash_attention_bwd_bf16_launch": [_P] * 13 + [_I] * 7 + [_L] * 15 + [_I, _I, _D, _P],
 }
 
 
@@ -101,10 +105,7 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, with_lse):
     lib = _build.load("flash_attention", _SIGNATURES)
     if q.dtype == torch.bfloat16:
         q, _, _, *q_str = tma_view(q, shared=False)
-        (k, Bk, Hk, *k_str), (v, Bv, Hv, *v_str) = tma_view(k), tma_view(v)
-        if (Bv, Hv) != (Bk, Hk):  # one map shape serves both
-            (k, Bk, Hk, *k_str), (v, _, _, *v_str) = (
-                tma_view(t, shared=False) for t in (k, v))
+        k, v, Bk, Hk, k_str, v_str = _tma_kv(k, v)
         out = torch.empty_like(q)  # q's layout when q is dense, else contiguous
         with torch.cuda.device(q.device):
             err = lib.flash_attention_bf16_launch(
@@ -143,22 +144,36 @@ def flash_attention_bwd(q, k, v, q_pos, k_pos, o, lse, do, *, causal: bool = Tru
             or lse.dtype != torch.float32 or any(t.device != q.device for t in (o, lse, do)):
         raise ValueError("flash_attention_bwd wants o and do like q and lse (B, H, Sq) "
                          "float32 on q's device")
-    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do))
     do = do.to(q.dtype)
     lse = lse.contiguous()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, H, Sk, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
     lib = _build.load("flash_attention", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
-            B, H, Sq, Sk, D, *strides, int(causal), int(window), float(D) ** -0.5,
-            _build.stream_of(q))
+    if q.dtype == torch.bfloat16:
+        (q, _, _, *q_str), (o, _, _, *o_str), (do, _, _, *g_str) = (
+            tma_view(t, shared=False) for t in (q, o, do))
+        k, v, Bk, Hk, k_str, v_str = _tma_kv(k, v)
+        # each 64-row tile's position range, written by the first kernel
+        ranges = torch.empty((-(-Sq // ref.TILE) - (-Sk // ref.TILE), 4), dtype=torch.int32,
+                             device=q.device)
+        with torch.cuda.device(q.device):
+            err = lib.flash_attention_bwd_bf16_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), delta.data_ptr(),
+                ranges.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Bk, Hk,
+                Sq, Sk, D, *q_str, *k_str, *v_str, *o_str, *g_str, int(causal), int(window),
+                float(D) ** -0.5, _build.stream_of(q))
+    else:
+        q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do))
+        strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
+        with torch.cuda.device(q.device):
+            err = lib.flash_attention_bwd_f32_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, Sk, D, *strides,
+                int(causal), int(window), float(D) ** -0.5, _build.stream_of(q))
     _build.check(lib, err, "flash_attention_bwd")
     LAUNCHES["bwd"] += 1
     return dq, dk, dv
@@ -181,6 +196,16 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do,
                                          causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None, None, None
+
+
+def _tma_kv(k, v):
+    """k and v as their TMA maps read them, ``(k, v, Bk, Hk, k_strides,
+    v_strides)``: a stride-0 batch or head axis shared when both allow
+    it, as one map shape serves both."""
+    (k, Bk, Hk, *k_str), (v, Bv, Hv, *v_str) = tma_view(k), tma_view(v)
+    if (Bv, Hv) != (Bk, Hk):
+        (k, Bk, Hk, *k_str), (v, _, _, *v_str) = (tma_view(t, shared=False) for t in (k, v))
+    return k, v, Bk, Hk, k_str, v_str
 
 
 def tma_view(t, shared: bool = True):

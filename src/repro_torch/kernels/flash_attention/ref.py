@@ -2,7 +2,8 @@
 masked softmax of the reference's ``attention_ref``, each row's
 log-sum-exp, and the backward by its explicit formulas, in float32.
 They materialise the (B, H, Sq, Sk) scores: 4.3 GB at B=4, H=16,
-S=4096."""
+S=4096.  ``attention_bwd_bf16_ref`` emulates the bf16 backward kernels'
+own arithmetic, a tile at a time."""
 from __future__ import annotations
 
 import torch
@@ -66,3 +67,90 @@ def attention_bwd_ref(q, k, v, q_pos, k_pos, o, lse, do, *, causal: bool = True,
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
     return dq, dk, dv
+
+
+TILE = 64  # rows of the bf16 backward kernels' query and key tiles (``tcb::BM``)
+LOG2E = 1.4426950408889634
+
+
+def tile_pairs(q_pos, k_pos, causal, window):
+    """(nqt, nkt) bool ``hidden`` and ``whole`` of each (64-query, 64-key)
+    tile pair, by the kernels' rules: hidden when no query of the tile may
+    see a key of the other (``tile_hidden``); whole when every pair is
+    allowed (no hole or slot past Sk among the keys, and the causal and
+    window edges clear), so no per-element mask is needed."""
+    big = 2 ** 31 - 1
+    qp, kp = q_pos.to(torch.int64), k_pos.to(torch.int64)
+    nqt, nkt = -(-qp.numel() // TILE), -(-kp.numel() // TILE)
+
+    def tiles(x, n, fill):
+        return torch.cat([x, x.new_full((n * TILE - x.numel(),), fill)]).view(n, TILE)
+
+    qmin = tiles(qp, nqt, big).amin(1)[:, None]
+    qmax = tiles(qp, nqt, -big - 1).amax(1)[:, None]
+    valid = tiles(kp >= 0, nkt, False)
+    kv = tiles(kp, nkt, -1)
+    kmin = torch.where(valid, kv, big).amin(1)[None]
+    kmax = torch.where(valid, kv, -big - 1).amax(1)[None]
+    hole = (~valid).any(1)[None]
+    hidden = (kmin > kmax) | (qmin > qmax)
+    if causal:
+        hidden = hidden | (kmin > qmax)
+    if window > 0:
+        hidden = hidden | (kmax <= qmin - window)
+    whole = ~hole & (kmax <= qmin if causal else True) \
+        & (kmin > qmax - window if window > 0 else True)
+    return hidden, whole.expand(hidden.shape)
+
+
+def attention_bwd_bf16_ref(q, k, v, q_pos, k_pos, o, lse, do, *, causal: bool = True,
+                           window: int = 0, skip: bool = True):
+    """What the bfloat16 backward kernels compute (``flash_attention.cu``,
+    ``tcb::``), in plain torch: delta = rowsum(dO * O) in float32;
+    P = exp2(scale log2(e) S - log2(e) lse) (+inf in place of a row's
+    -inf lse, so a row with no key gets no gradient); dS = P (dP - delta)
+    from the float32 P; dV = P^T dO and dK = scale dS^T Q summed over the
+    query tiles of 64 in order, dQ = scale dS K over the key tiles of 64
+    in order, P^T, dS^T and dS rounded to bfloat16 as the products' A
+    operands and every sum in float32.  With ``skip`` a tile pair that
+    ``tile_pairs`` finds hidden is left out and one it finds whole runs
+    without the per-element mask, as in the kernels; ``skip=False`` masks
+    every pair (the same numbers: the rules only drop exact zeros and
+    all-true masks).  Returns (dq, dk, dv) in q's type."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    f32 = torch.float32
+    sl2 = torch.tensor(D ** -0.5, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+    qf, kf, vf, gf = (t.to(f32) for t in (q, k, v, do))
+    delta = (gf * o.to(f32)).sum(-1)
+    lse = lse.to(f32)
+    lse2 = torch.where(lse > -torch.inf, lse * torch.tensor(LOG2E, dtype=f32), torch.inf)
+    mask = position_mask(q_pos, k_pos, causal=causal, window=window)
+    if skip:  # the pair rules, grown from tiles to elements
+        hidden, whole = (x.repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)[:Sq, :Sk]
+                         for x in tile_pairs(q_pos, k_pos, causal, window))
+        mask = ~hidden & (whole | mask)
+
+    def bf(x):  # an A operand: rounded to bf16
+        return x.to(torch.bfloat16).to(f32)
+
+    def p_ds(rows, cols):
+        s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, rows], kf[:, :, cols])
+        p = torch.where(mask[rows, cols], torch.exp2(s * sl2 - lse2[:, :, rows, None]), 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", gf[:, :, rows], vf[:, :, cols])
+        return p, p * (dp - delta[:, :, rows, None])
+
+    dk = torch.zeros(B, H, Sk, D, device=q.device)
+    dv = torch.zeros_like(dk)
+    for t0 in range(0, Sq, TILE):  # dK, dV: the query tiles in order
+        rows = slice(t0, t0 + TILE)
+        p, ds = p_ds(rows, slice(None))
+        dv += torch.einsum("bhqk,bhqd->bhkd", bf(p), gf[:, :, rows])
+        dk += torch.einsum("bhqk,bhqd->bhkd", bf(ds), qf[:, :, rows])
+    dq = torch.zeros(B, H, Sq, D, device=q.device)
+    for k0 in range(0, Sk, TILE):  # dQ: the key tiles in order
+        cols = slice(k0, k0 + TILE)
+        _, ds = p_ds(slice(None), cols)
+        dq += torch.einsum("bhqk,bhkd->bhqd", bf(ds), kf[:, :, cols])
+    scale = torch.tensor(D ** -0.5, dtype=f32)
+    return (dq * scale).to(q.dtype), (dk * scale).to(q.dtype), dv.to(q.dtype)

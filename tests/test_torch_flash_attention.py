@@ -335,3 +335,49 @@ def test_attention_function_plumbing_on_cpu():
     _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k1, v1)))
     for name, g, w in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(do))):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **BWD_TOL)
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,window,holes", [
+    (1, 2, 40, 40, 16, True, 0, False),
+    (2, 1, 48, 80, 32, True, 24, False),   # window, Sq < Sk
+    (1, 2, 33, 50, 16, False, 0, False),   # cross attention
+    (1, 1, 45, 45, 32, True, 10, True),    # holes, a row with no key
+    (1, 2, 200, 200, 256, True, 96, False),  # D = 256, window across tiles
+    (1, 2, 100, 100, 48, False, 0, False),   # D = 48, zero-filled to 64 on the card
+])
+def test_attention_bwd_bf16_ref_matches_jax_vjp(B, H, Sq, Sk, D, causal, window, holes):
+    """``attention_bwd_bf16_ref`` (the bf16 wgmma backward's arithmetic) on
+    bf16 inputs against jax.vjp of the reference's oracle on the same
+    values, within 2^-7 of each output's largest value and rtol 2^-7
+    (chip_smoke's BWD_TOL for bf16).  Why it holds: products of bf16
+    values are exact in float32 and the sums are float32, so what differs
+    is where the emulation rounds: O to bf16 (moving delta by ~2^-9 of
+    |dO||O|), P^T and dS^T to bf16 before the updates (2^-9 of each term,
+    the rounding errors adding as a random walk, so a few 2^-9 of the
+    output's typical size at most), and the outputs to bf16 (2^-9 of
+    each element, inside rtol).  The tile skip and the whole-tile rules
+    change nothing: the same arithmetic with every pair masked agrees to
+    1e-6."""
+    from repro.kernels.flash_attention.ref import attention_ref as jax_attention
+
+    q, k, v, do, q_pos, k_pos = _bwd_case(Sq + D, B, H, Sq, Sk, D, causal, window, holes)
+    q, k, v, do = (_torch(a, torch.bfloat16).float().numpy() for a in (q, k, v, do))
+    kw = dict(causal=causal, window=window)
+    out, vjp = jax.vjp(lambda a, b, c: jax_attention(a, b, c, jnp.asarray(q_pos),
+                                                      jnp.asarray(k_pos), **kw),
+                       *(jnp.asarray(a) for a in (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (_torch(a, torch.bfloat16) for a in (q, k, v, do))
+    tqp, tkp = torch.from_numpy(q_pos), torch.from_numpy(k_pos)
+    o = _torch(np.array(out), torch.bfloat16)
+    lse = ref.lse_ref(tq, tk, tqp, tkp, **kw)
+    got = ref.attention_bwd_bf16_ref(tq, tk, tv, tqp, tkp, o, lse, tdo, **kw)
+    masked = ref.attention_bwd_bf16_ref(tq, tk, tv, tqp, tkp, o, lse, tdo, skip=False, **kw)
+    for name, g, m, w in zip(("dq", "dk", "dv"), got, masked, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        np.testing.assert_allclose(g.float().numpy(), m.float().numpy(), atol=1e-6, rtol=0,
+                                   err_msg=name)
+        np.testing.assert_allclose(g.float().numpy(), w, atol=2.0 ** -7 * np.abs(w).max(),
+                                   rtol=2.0 ** -7, err_msg=name)
+    if holes:
+        assert not got[0][:, :, 0].any()

@@ -63,6 +63,11 @@ ATTN_CASES = [
     (1, 2, 200, 200, 64, True, 0, False, torch.bfloat16, False),
     (2, 3, 129, 129, 128, True, 40, True, torch.bfloat16, True),
     (1, 2, 100, 100, 48, False, 0, False, torch.bfloat16, False),
+    (1, 3, 130, 130, 256, True, 0, True, torch.bfloat16, False),  # S not a multiple of 64
+    (2, 2, 333, 333, 256, True, 100, False, torch.bfloat16, True),
+    (2, 2, 70, 200, 128, True, 64, False, torch.bfloat16, True),  # cross: Sq < Sk
+    (1, 2, 64, 256, 64, False, 0, False, torch.bfloat16, False),
+    (2, 2, 1, 96, 32, True, 0, False, torch.bfloat16, False),  # a single query
 ]
 
 
@@ -93,6 +98,45 @@ def test_attention_lse_and_backward_kernels(card, B, H, Sq, Sk, D, causal, windo
         assert not got[0][:, :, 0].any()
     again = fa_ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+def test_attention_bf16_backward_is_deterministic(card):
+    """Two calls of the bf16 backward (the wgmma kernels: no atomics, each
+    accumulator summing its tiles in one fixed order) give the same bits,
+    on a shape with many tiles a block: D = 256, one KV head at stride 0,
+    causal with a window across tiles, S not a multiple of 64."""
+    q, k, v, q_pos, k_pos, do = _attention(card, 2, 4, 1000, 1000, 256, True, 300, False,
+                                           torch.bfloat16, True, seed=9)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, q_pos, k_pos, causal=True, window=300)
+    first = fa_ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do, causal=True,
+                                       window=300)
+    for _ in range(2):
+        again = fa_ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do, causal=True,
+                                           window=300)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(a, b), name
+
+
+def test_attention_bf16_backward_tile_of_holes(card):
+    """A whole 64-key tile of holes (its dK/dV block streams no query tile
+    and writes zeros; no dQ block loads it) and a query that sees no key,
+    under a window across tiles."""
+    q, k, v, q_pos, k_pos, do = _attention(card, 1, 2, 200, 200, 64, True, 90, False,
+                                           torch.bfloat16, False, seed=11)
+    k_pos = k_pos.clone()
+    k_pos[64:128] = -1
+    q_pos = q_pos.clone()
+    q_pos[5] = -1
+    kw = dict(causal=True, window=90)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, q_pos, k_pos, **kw)
+    got = fa_ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = fa_ref.attention_bwd_ref(q, k, v, q_pos, k_pos, out, lse, do, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, w.to(torch.bfloat16), msg=name, **TOL[torch.bfloat16])
+    assert not got[1][:, :, 64:128].any() and not got[2][:, :, 64:128].any()
+    assert not got[0][:, :, 5].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
