@@ -66,7 +66,11 @@ one JSON line; any failure exits non-zero:
    ``overlay_batch``'s pre-pass layer lists against ``layer_lists_ref``,
    RG-LRU within 2e-5 of ``rglru_chunked_ref``, the bf16 attention
    backward within 2^-10 of each output's largest value, rtol 2^-7, of
-   ``attention_bwd_bf16_ref``); the backward kernels
+   ``attention_bwd_bf16_ref``, the float32 attention forward and backward
+   within 2^-16 of it, rtol 2^-16, of ``attention_3xtf32_ref`` /
+   ``attention_bwd_3xtf32_ref``, limits the one-term TF32 emulation must
+   miss at D = 256; the float32 forward also at B=1 H=4 S=2048 D=256,
+   window 1024, one KV head at stride 0); the backward kernels
    (``flash_attention.bwd``, ``rglru_scan.bwd``) on the inputs the train
    steps gave them and at headline shapes, against ``attention_bwd_ref``,
    ``rglru_bwd_ref`` and ``rglru_bwd_chunked_ref``, with limits that scale
@@ -82,7 +86,8 @@ one JSON line; any failure exits non-zero:
    CUDA events, beside the plain version's, one library call's where
    there is one, and the bound: the larger of the bytes the function
    must move over the memory rate and the operations these inputs need
-   over the peak rate for their type, both counted from the data.
+   over the peak rate for their type, both counted from the data (float32
+   attention: three TF32 products a product, at the TF32 rate).
    Then ``overlay`` bit for bit at the edges of its seed from layer 0
    (``ref.overlay_edge_stacks``, K = 0, 1, 4, 5, 20) and on unaligned attrs,
    and ``overlay_batch`` at the edges the cases above do not reach: other
@@ -140,6 +145,16 @@ LSE_TOL = dict(atol=1e-4, rtol=1e-4)  # f32 row log-sum-exp, sums in another ord
 # side of a bf16 step (rtol) and the rest is 2^-10 of the largest value,
 # 8 times tighter than BWD_TOL
 BWD_BF16_REF_TOL = dict(atol=2.0 ** -10, rtol=2.0 ** -7)
+# the float32 attention kernels against the emulation of their 3xTF32
+# arithmetic (``attention_3xtf32_ref``, ``attention_bwd_3xtf32_ref``): the
+# same split products, summed in float32 in another order and, inside the
+# tensor cores, with another rounding of the accumulator, whose drift grows
+# with the length of a sum (dV over 1,024 queries at the S=2048 headline
+# sits 7.4e-6 of its largest value from the emulation, as far as from the
+# plain version); so 2^-16 of each output's largest value (and rtol 2^-16),
+# a third tighter than the float32 BWD_TOL, while one TF32 product alone
+# is off by ~2^-11 of a product (~3e-4 of the largest value at D = 256)
+F32_REF_TOL = dict(atol=2.0 ** -16, rtol=2.0 ** -16)
 # the mask check (q = 0, v = key-position bits): bf16 rounds its outputs by
 # at most 2^-9, one key more or less in a window of 64 moves a bit column
 # by at least 0.5 / 65
@@ -967,6 +982,16 @@ def attention_bwd_work(q, k, v, q_pos, k_pos, o, lse, do, causal=True, window=0)
     return 10 * D * pairs, nbytes, pairs
 
 
+def attention_ops_peak(ops, dtype) -> tuple:
+    """The operations attention's bound counts and the peak rate they run
+    at: bf16 products on the tensor cores at the bf16 rate; float32 ones to
+    float32 accuracy as 3xTF32, three TF32 products each (the kernels'
+    arithmetic; CUDA cores alone reach only FP32_OPS_PER_S)."""
+    if dtype == torch.bfloat16:
+        return ops, BF16_OPS_PER_S
+    return 3 * ops, TF32_OPS_PER_S
+
+
 def kernel_case(name, args, kw, tag, tol=None, recorded=False):
     """Run one kernel on ``args`` against its plain version: bit-identical
     (PageRank, attention, RG-LRU: within their tolerance, or ``tol``, and
@@ -1027,7 +1052,7 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False):
             return fa_ref.attention_ref(*a, **k).to(a[0].dtype)
 
         ops, nbytes, pairs = attention_work(*args, **kw)
-        peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+        ops, peak = attention_ops_peak(ops, q.dtype)
         B, H, Sq, D = q.shape
         shape = dict(B=B, H=H, Sq=Sq, Sk=args[1].shape[2], D=D, dtype=str(q.dtype),
                      kv_head_stride=args[1].stride(1), pairs=pairs, **kw)
@@ -1045,7 +1070,7 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False):
             return tuple(g.to(a[0].dtype) for g in fa_ref.attention_bwd_ref(*a, **k))
 
         ops, nbytes, pairs = attention_bwd_work(*args, **kw)
-        peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+        ops, peak = attention_ops_peak(ops, q.dtype)
         B, H, Sq, D = q.shape
         shape = dict(B=B, H=H, Sq=Sq, Sk=args[1].shape[2], D=D, dtype=str(q.dtype),
                      kv_head_stride=args[1].stride(1), pairs=pairs, **kw)
@@ -1158,7 +1183,16 @@ def decomposition_check(name, tag, args, kw, got) -> dict:
     of ``rglru_chunked_ref`` / ``rglru_bwd_chunked_ref`` at the kernel's
     chunk; the attention backward's input ``lse`` (the forward kernel's)
     within LSE_TOL of ``lse_ref``, ``-inf`` on the same rows, and its bf16
-    outputs within BWD_BF16_REF_TOL of ``attention_bwd_bf16_ref``."""
+    outputs within BWD_BF16_REF_TOL of ``attention_bwd_bf16_ref``; the
+    float32 attention forward and backward within F32_REF_TOL of
+    ``attention_3xtf32_ref`` / ``attention_bwd_3xtf32_ref``, where the same
+    limits must reject the one-term TF32 emulation at D = 256."""
+    if name in ("flash_attention", "flash_attention.bwd") and args[0].dtype == torch.float32:
+        out = tf32_check(name, tag, args, kw, got)
+        if name == "flash_attention":
+            return out
+    else:
+        out = {}
     if name == "delta_overlay.overlay":
         from repro_torch.kernels.delta_overlay import ref as ov_ref
 
@@ -1205,7 +1239,7 @@ def decomposition_check(name, tag, args, kw, got) -> dict:
         err = float((lse[finite] - want[finite]).abs().max()) if finite.any() else 0.0
         if not torch.allclose(lse[finite], want[finite], **LSE_TOL):
             fail(f"{name} ({tag}): the forward's lse outside {LSE_TOL} of lse_ref: {err}")
-        out = dict(lse_max_abs_err=err, rows_without_key=int((~finite).sum()))
+        out.update(lse_max_abs_err=err, rows_without_key=int((~finite).sum()))
         if q.dtype == torch.bfloat16:  # the wgmma kernels' own arithmetic
             want = fa_ref.attention_bwd_bf16_ref(*args, **kw)
             lims = [scaled(BWD_BF16_REF_TOL, w) for w in want]
@@ -1216,6 +1250,36 @@ def decomposition_check(name, tag, args, kw, got) -> dict:
             out.update(bf16_ref_max_abs_err=err, bf16_ref_limits=[lim["atol"] for lim in lims])
         return out
     return {}
+
+
+def tf32_check(name, tag, args, kw, got) -> dict:
+    """A float32 attention kernel's outputs against the plain emulation of
+    its 3xTF32 arithmetic, within F32_REF_TOL of each output's largest
+    value; the one-term TF32 emulation under the same limits is reported
+    and, at D = 256, must be rejected."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    if name == "flash_attention":
+        def emulate(terms):
+            return fa_ref.attention_3xtf32_ref(*args, terms=terms, **kw)[:1]
+    else:
+        def emulate(terms):
+            return fa_ref.attention_bwd_3xtf32_ref(*args, terms=terms, **kw)
+    want = emulate(3)
+    lims = [scaled(F32_REF_TOL, w) for w in want]
+
+    def within(outs):
+        err = max(float((g - w).abs().max()) for g, w in zip(outs, want))
+        return err, all(torch.allclose(g, w, **lim) for g, w, lim in zip(outs, want, lims))
+
+    err, ok = within(got)
+    if not ok:
+        fail(f"{name} ({tag}) outside {lims} of the 3xTF32 emulation: {err}")
+    one_err, one_ok = within(emulate(1))
+    if one_ok and args[0].shape[-1] == 256:
+        fail(f"{name} ({tag}): the one-term TF32 emulation passes the limits {lims}")
+    return dict(tf32x3_ref_max_abs_err=err, tf32x3_ref_limits=[lim["atol"] for lim in lims],
+                one_term_tf32=dict(max_abs_err=one_err, rejected=not one_ok))
 
 
 def headline_inputs(dev):
@@ -1382,7 +1446,17 @@ def headline_inputs(dev):
            rglru_bwd(1, 4097, 4096), rglru_bwd(2, 33, 64), rglru_bwd(1, 130, 96),
            # drawn last, so the cases above keep their inputs
            attention_bwd(1, 4, 2048, 256, 1024, bf16)]
-    return lm + bwd + [(k, tag, a, {}, None) for k, tag, a in dense + [
+    # the float32 forward at the backward's headline shape, from a generator
+    # of its own, so every case above keeps its inputs
+    gf = torch.Generator(device=dev).manual_seed(29)
+    q = torch.randn(1, 4, 2048, 256, generator=gf, device=dev) * 0.5
+    k, v = (torch.randn(1, 1, 2048, 256, generator=gf, device=dev).mul(0.5)
+            .expand(1, 4, 2048, 256) for _ in range(2))
+    pos = torch.arange(2048, dtype=torch.int32, device=dev)
+    f32_headline = ("flash_attention",
+                    "B=1 H=4 Sq=2048 Sk=2048 D=256 float32 causal=True window=1024 "
+                    "KV head stride 0", [q, k, v, pos, pos], dict(causal=True, window=1024), None)
+    return lm + bwd + [f32_headline] + [(k, tag, a, {}, None) for k, tag, a in dense + [
         ("delta_overlay.overlay", "h=8 P=16 S=65536 K=4", stacks(8, 16, 65536, 4)),
         ("delta_overlay.overlay", "h=8 P=16 S=65537 K=4", stacks(8, 16, 65537, 4)),
         ("delta_overlay.overlay_batch", "h=8 P=16 S=65536 K=4 T=32",

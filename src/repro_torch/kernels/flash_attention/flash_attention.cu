@@ -52,33 +52,51 @@
 // two runs give the same bits.  Shared memory at DP = 256: Q 64 KB + 2 x
 // (K 32 KB + V 32 KB) = 192 KB, one block per SM.
 //
-// fa_kernel, float32 (the exact path, 2e-5; TF32 would not hold it): one
-// block of 256 threads per (64-query tile, h, b); KV tiles of 64 keys
-// staged in shared memory (Q and K transposed, so the score loop reads
-// both with float4 loads); f32 products on CUDA cores; each thread holds a
-// 4 x 4 block of the scores and a 4 x (D / 16) block of the output
-// accumulator; each warp runs the online softmax of 8 rows.  The same tile
-// skip, tested against the block's 64 queries.  222,464 bytes of shared
-// memory at D = 256.
+// fa_kernel<DP>, float32 (the exact path, 2e-5): the products on the
+// tensor cores in 3xTF32.  One TF32 product keeps 11 significant bits, too
+// few for 2e-5; so each operand is split, a = hi + lo with hi and lo
+// rounded to TF32 as cvt.rna.tf32.f32 rounds (hi from a, lo from a - hi;
+// done in two integer operations), and every product is lo.hi + hi.lo +
+// hi.hi summed in float32 (mma.sync m16n8k8 .tf32, the small terms first):
+// float32 accuracy at a third of the 495 TFLOP/s TF32 rate, which bounds
+// it (3 x 4 D operations a pair).  One block of 8 warps per (64-query
+// tile, h, b): Q copied once, key tiles of 32 through a 2-stage cp.async
+// ring of K and V; two warps share each 16 rows and take 16 keys of a tile
+// each (they swap row maxima, keep their own sums and add them at the
+// end), so each scheduler has two warps to switch between.  S and P V on
+// mma.sync with the split done as fragments are read from shared memory
+// (rows DP + 4 floats apart: no bank conflicts), P split in registers; the
+// online softmax in float32 on the accumulator fragments.  The block lists
+// the key tiles it may see first (tile_hidden), so a hidden tile is never
+// loaded; a warp pair skips a tile none of its rows sees and masks per
+// element only a tile that straddles a mask edge.  DP = 32, 64, 128, 256
+// compiled; 205 KB of shared memory at DP = 256.
 //
 // The backward (the port's own: the reference differentiates its jnp
-// attention), three launches in stream order, also chosen by type.  With
+// attention), launches in stream order, chosen by type as the forward.  With
 // P = exp(scale S - lse) under the masks, delta = rowsum(dO * O) and dS =
 // P (dP - delta): dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.  Bound:
 // 10 D operations a pair (S and dP recomputed, three updates); these
 // kernels do 14 D, as the dQ kernel computes S and dP again.
-// bfloat16 (tcb::): prep_kernel writes delta and each 64-row tile's
+// bfloat16 (tcb::), three launches: prep_kernel writes delta and each 64-row tile's
 // position range; dkdv_wgmma<DP> (a block per 64-key tile: the keys' K and
 // V once, the query tiles they may be seen by streamed through a ring)
 // and dq_wgmma<DP> (a block per 128 queries over the key tiles they may
 // see) run every product on wgmma fed by TMA, as fa_wgmma does; P^T, dS^T
 // and dS are rounded to bf16 only as A operands, dS is formed from the f32
-// P, every sum is f32.  float32 (bwd::): the same three steps on CUDA
-// cores, 32 x 32 tiles, exact to float32 rounding.  Neither uses atomics:
-// each accumulator sums its tiles in one fixed order, so two runs give the
-// same bits.
+// P, every sum is f32.  float32 (tf::): two launches, 3xTF32 products
+// as the forward's: dq_kernel<DP> (a block per 64 queries: first each
+// row's delta, then the key tiles the block may see, 16 or 32 keys, through
+// a cp.async ring; per 16 rows one warp S and P, the other dP, swapped in
+// shared memory, then each dQ += dS K over half of D) and dkdv_kernel<DP>
+// (a block per 32 keys over the query tiles of 32 that may see them; per
+// 16 keys and half a tile one warp S^T, P^T and dV, the other dP^T, dS^T
+// and dK, P^T handed over in shared memory; the tile halves' sums added at
+// the end).  Neither uses atomics: each accumulator sums its tiles in one
+// fixed order, so two runs give the same bits.
 #include <climits>
 #include <cstdint>
+#include <initializer_list>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,19 +134,32 @@ __device__ __forceinline__ bool tile_hidden(int kmin, int kmax, int qmin, int qm
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA-core kernel
+// float32: 3xTF32 products on the tensor cores (mma.sync)
 // ---------------------------------------------------------------------------
 
-namespace f32 {
+namespace tf {
 
-constexpr int BQ = 64;        // queries of a block
-constexpr int BK = 64;        // keys of a KV tile
-constexpr int THREADS = 256;  // 16 x 16: ty owns rows 4ty..4ty+3
-constexpr int QT_LD = BQ + 4;
-constexpr int KT_LD = BK + 4;
-constexpr int MAX_DC = 16;    // D / 16 output columns per thread
+constexpr int THREADS = 256;  // 8 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int BQ = 64;        // queries of a forward or dQ block: 4 row groups of 16
+constexpr int BT = 32;        // keys of a forward tile and of a dK/dV block; its query tiles
+constexpr int MAXT = 256;     // tiles listed at a time
+constexpr unsigned FULL = 0xffffffffu;
 
-struct Params {
+// DP: D rounded up to a compiled width.  Rows in shared memory are DP + 4
+// floats apart (LD = 4 mod 32 words), so the fragment loads below hit 32
+// distinct banks: a warp reads M[g][k + t] (bank 4 g + t) or M[2 t][n + g]
+// and M[2 t + 1][n + g] (8 t + g and 8 t + 4 + g).
+template <int DP> struct Shape {
+  static constexpr int LD = DP + 4;
+  static constexpr int NT = DP / 8;                 // output n-tiles of 8 columns
+  static constexpr int DQ_BK = DP >= 128 ? 16 : 32;  // keys of a dQ tile
+  static constexpr int FA_SMEM = (BQ + 4 * BT) * LD * 4;          // Q; 2 x (K, V)
+  static constexpr int DQ_SMEM = (2 * BQ + 4 * DQ_BK) * LD * 4;   // Q, dO; 2 x (K, V)
+  static constexpr int KV_SMEM = 6 * BT * LD * 4;                  // K, V; 2 x (Q, dO)
+};
+
+struct FwdParams {
   const float* q;
   const float* k;
   const float* v;
@@ -141,191 +172,757 @@ struct Params {
   float scale;
 };
 
-size_t smem_bytes(int D) {
-  return sizeof(float) * ((size_t)D * QT_LD + (size_t)D * KT_LD + (size_t)BK * D +
-                          BQ * BK + 3 * BQ) + sizeof(int) * (BQ + BK);
+struct BwdParams {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
+  const float* dout;
+  const float* lse;  // (B, H, Sq)
+  float* delta;      // (B, H, Sq): rowsum(dO * O), written by the dQ kernel
+  float* dq;         // (B, H, Sq, D) contiguous
+  float* dk;         // (B, H, Sk, D) contiguous
+  float* dv;         // (B, H, Sk, D) contiguous
+  const int* q_pos;
+  const int* k_pos;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, g_sb, g_sh,
+      g_ss;
+  int H, Sq, Sk, D, causal, window;
+  float scale;
+};
+
+__device__ __forceinline__ bool allowed(long long qp, long long kp, int causal, int window) {
+  return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
 }
 
-__global__ void __launch_bounds__(THREADS, 1) fa_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  const int D = p.D;
-  float* Qt = reinterpret_cast<float*>(smem4);  // [D][QT_LD]
-  float* Kt = Qt + (size_t)D * QT_LD;           // [D][KT_LD]
-  float* Vs = Kt + (size_t)D * KT_LD;           // [BK][D]
-  float* Ss = Vs + (size_t)BK * D;              // [BQ][BK] scores, then p
-  float* m_s = Ss + BQ * BK;
-  float* l_s = m_s + BQ;
-  float* al_s = l_s + BQ;
-  int* qpos_s = reinterpret_cast<int*>(al_s + BQ);
-  int* kpos_s = qpos_s + BQ;
-  __shared__ int range[4];  // q min, q max, valid k min, valid k max
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int lane = tid % 32, warp = tid / 32;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+// ---- asynchronous copies ----
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+// 16 bytes from global to shared memory without the registers; zeros when !valid
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// rows [r0, r0 + ROWS) of an (n, D) matrix with row stride ss, into shared
+// rows LD floats apart; rows at or past n are zero
+template <int ROWS, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long ss, int r0,
+                                          int n, int D) {
+  constexpr int C4 = (LD - 4) / 4;  // 16-byte chunks of a DP-wide row
+  for (int i = threadIdx.x; i < ROWS * C4; i += THREADS) {
+    const int r = i / C4, c = (i % C4) * 4;
+    if (c >= D) continue;
+    const bool ok = r0 + r < n;
+    cp16(dst + r * LD + c, ok ? src + (long long)(r0 + r) * ss + c : src, ok);
+  }
+}
+
+// ---- 3xTF32 products on mma.sync m16n8k8 ----
+// x rounded to TF32 to nearest, ties away from zero, as cvt.rna.tf32.f32
+// rounds: half a unit of the last kept bit added to the magnitude, then the
+// 13 bits below it dropped (two integer operations)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo + a rest below lo's last bit, hi and lo TF32 (rounded to
+// nearest, ties away from zero)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// s[j] += A B_j^T over the columns [0, D): A the warp's 16 rows, B_j rows
+// 8 j .. 8 j + 7 of Bm, both in shared memory LD floats apart.  s[j] is an
+// m16n8 accumulator: lane (g, t) = (lane / 4, lane % 4) holds rows g and
+// g + 8, columns 2 t and 2 t + 1.  An mma that waits on the one before it
+// stalls the warp (two warps a scheduler here), so the k steps go two at a
+// time into two partial sums, and each step's three products are issued
+// term by term over the 2 NJ accumulators: no mma follows one it needs.
+template <int NJ, int LD>
+__device__ __forceinline__ void mma_abt(float (&s)[NJ][4], const float* A, const float* Bm,
+                                        int D) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* a = A + g * LD + t;
+  const float* bb = Bm + g * LD + t;
+  float acc[2][NJ][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[h][j][0] = acc[h][j][1] = acc[h][j][2] = acc[h][j][3] = 0.f;
+  for (int k0 = 0; k0 < D; k0 += 16) {  // D is a multiple of 16
+    uint32_t ah[2][4], al[2][4], bh[2][NJ][2], bl[2][NJ][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kk = k0 + 8 * h;
+      split(a[kk], ah[h][0], al[h][0]);
+      split(a[8 * LD + kk], ah[h][1], al[h][1]);
+      split(a[kk + 4], ah[h][2], al[h][2]);
+      split(a[8 * LD + kk + 4], ah[h][3], al[h][3]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        split(bb[8 * j * LD + kk], bh[h][j][0], bl[h][j][0]);
+        split(bb[8 * j * LD + kk + 4], bh[h][j][1], bl[h][j][1]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma_tf32(acc[h][j], al[h], bh[h][j][0], bh[h][j][1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma_tf32(acc[h][j], ah[h], bl[h][j][0], bl[h][j][1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma_tf32(acc[h][j], ah[h], bh[h][j][0], bh[h][j][1]);
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[j][c] += acc[0][j][c] + acc[1][j][c];
+}
+
+// o[n] += P B over the output columns [0, D): P the warp's 16 x 8 NJ
+// accumulator tiles as mma_abt leaves them, B rows 0 .. 8 NJ - 1 of Bm.
+// P's columns 2 t and 2 t + 1 of tile j become the A fragment's columns t
+// and t + 4, so B's rows are read in that order: 8 j + 2 t and 8 j + 2 t + 1.
+// The n-tiles go 8 at a time, each round's products issued term by term.
+template <int NJ, int NT, int LD>
+__device__ __forceinline__ void mma_pb(float (&o)[NT][4], const float (&pm)[NJ][4],
+                                       const float* Bm, int D) {
+  constexpr int G = NT < 8 ? NT : 8;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    uint32_t ah[4], al[4];
+    split(pm[j][0], ah[0], al[0]);
+    split(pm[j][2], ah[1], al[1]);
+    split(pm[j][1], ah[2], al[2]);
+    split(pm[j][3], ah[3], al[3]);
+    const float* b0 = Bm + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+    for (int n0 = 0; n0 < NT; n0 += G) {
+      if (8 * n0 >= D) continue;
+      uint32_t bh[G][2], bl[G][2];
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const int n = n0 + i;
+        split(b0[8 * n], bh[i][0], bl[i][0]);
+        split(b0[LD + 8 * n], bh[i][1], bl[i][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        if (8 * (n0 + i) < D) mma_tf32(o[n0 + i], al, bh[i][0], bh[i][1]);
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        if (8 * (n0 + i) < D) mma_tf32(o[n0 + i], ah, bl[i][0], bl[i][1]);
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        if (8 * (n0 + i) < D) mma_tf32(o[n0 + i], ah, bh[i][0], bh[i][1]);
+    }
+  }
+}
+
+// Lists, in order, the tiles c0 <= t < min(c0 + MAXT, nt) of TS positions
+// (tile t: pos[t TS ..], n positions in all) that are not hidden from the
+// block's own range [bmin, bmax]: with `keys` the tiles are key tiles and
+// the block's range is of queries, else the other way round.  Entry
+// {min, max, hole, t}: the tile's valid range, and whether a slot is a hole
+// or past n.  Returns the count; every thread takes part.
+template <int TS>
+__device__ int list_tiles(const int* pos, int n, int nt, int c0, bool keys, int bmin, int bmax,
+                          int causal, int window, int4* list, int* count) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c1 = min(nt, c0 + MAXT);
+  for (int t = c0 + warp; t < c1; t += WARPS) {
+    const int r = t * TS + lane;
+    const bool in = lane < TS && r < n;
+    const int v = in ? pos[r] : -1;
+    const bool ok = in && (!keys || v >= 0);
+    int mn = ok ? v : INT_MAX, mx = ok ? v : INT_MIN;
+    warp_min_max(mn, mx);
+    const int hole = __any_sync(FULL, lane < TS && !ok);
+    const bool hidden = keys ? tile_hidden(mn, mx, bmin, bmax, causal, window)
+                             : tile_hidden(bmin, bmax, mn, mx, causal, window);
+    if (lane == 0) list[t - c0] = make_int4(mn, mx, hole, hidden ? -1 : t);
+  }
+  __syncthreads();
+  if (warp == 0) {  // compact in place, in order
+    int cnt = 0;
+    for (int i0 = 0; i0 < c1 - c0; i0 += 32) {
+      const int4 e = i0 + lane < c1 - c0 ? list[i0 + lane] : make_int4(0, 0, 0, -1);
+      const unsigned vis = __ballot_sync(FULL, e.w >= 0);
+      __syncwarp();
+      if (e.w >= 0) list[cnt + __popc(vis & ((1u << lane) - 1))] = e;
+      cnt += __popc(vis);
+      __syncwarp();
+    }
+    if (lane == 0) *count = cnt;
+  }
+  __syncthreads();
+  return *count;
+}
+
+// the min and max of q_pos over the block's rows [0, nq) and over row group
+// rg's 16 of them (INT_MAX, INT_MIN if it has none)
+__device__ __forceinline__ void query_ranges(const int* q_pos, int q0, int nq, int rg, int2& blk,
+                                             int2& own) {
+  const int lane = threadIdx.x % 32, w0 = rg * 16;
+  int mn = INT_MAX, mx = INT_MIN;
+  for (int r = lane; r < nq; r += 32) {
+    const int v = q_pos[q0 + r];
+    mn = min(mn, v);
+    mx = max(mx, v);
+  }
+  warp_min_max(mn, mx);
+  blk = make_int2(mn, mx);
+  mn = INT_MAX;
+  mx = INT_MIN;
+  if (lane < 16 && w0 + lane < nq) mn = mx = q_pos[q0 + w0 + lane];
+  warp_min_max(mn, mx);
+  own = make_int2(mn, mx);
+}
+
+// the two warps of a row group (64 threads) meet at named barrier 1 + rg
+__device__ __forceinline__ void group_sync(int rg) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg) : "memory");
+}
+
+// A warp's accumulator tiles to and from shared memory in fragment order
+// (16-byte stores and loads, lane after lane): how the two warps that
+// split a tile's keys (or queries) add their partial sums at the end.
+template <int NT>
+__device__ __forceinline__ void stash(float4* buf, const float (&o)[NT][4]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) buf[n * 32 + lane] = make_float4(o[n][0], o[n][1], o[n][2], o[n][3]);
+}
+template <int NT>
+__device__ __forceinline__ void add_stash(float (&o)[NT][4], const float4* buf) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float4 x = buf[n * 32 + lane];
+    o[n][0] += x.x;
+    o[n][1] += x.y;
+    o[n][2] += x.z;
+    o[n][3] += x.w;
+  }
+}
+
+// ---- forward ----
+// One block of 8 warps per (64 queries, h, b).  Q is copied once; the key
+// tiles the block may see go through a 2-stage cp.async ring of K and V
+// (the next tile lands while this one computes).  Warps w and w + 4 share
+// row group rg = w % 4 (16 rows) and split each 32-key tile: warp w + 4 kh
+// takes keys 16 kh .. 16 kh + 15.  Per tile each computes S = Q K^T (3xTF32)
+// over its keys, the mask (skipped on a tile every row of the group sees
+// whole), its row maxima, which the pair swaps in shared memory so both use
+// one running max m; then its p, its own running row sums and O += P V
+// (3xTF32, P split in registers).  Two warps a scheduler: while one
+// computes its softmax the other keeps the tensor cores busy.  At the end
+// warp w + 4 hands its O and l to warp w, which adds them and writes.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) fa_kernel(const FwdParams p) {
+  using L = Shape<DP>;
+  constexpr int LD = L::LD, NT = L::NT, NJ = BT / 16;
+  extern __shared__ float4 smem4[];
+  float* const Qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]
+  float* const Rs = Qs + BQ * LD;  // stage s: K at Rs + 2 s BT LD, V BT LD after
+  __shared__ int4 list[MAXT];
+  __shared__ int kpos_s[2][BT];
+  __shared__ float xmax[2][2][BQ];  // [tile parity][key half][row]: the pair's row maxima
+  __shared__ float xl[BQ];
+  __shared__ int count;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  const int rg = warp % 4, kh = warp / 4;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z, D = p.D;
   const int nq = min(BQ, p.Sq - q0);
-  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
   const float* kb = p.k + b * p.k_sb + h * p.k_sh;
   const float* vb = p.v + b * p.v_sb + h * p.v_sh;
-  float* ob = p.o + b * p.o_sb + h * p.o_sh;
+  load_rows<BQ, LD>(Qs, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, D);
+  cp_commit();
+  int2 blk, own;
+  query_ranges(p.q_pos, q0, nq, rg, blk, own);
+  const int r0 = rg * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const long long qp[2] = {r0 < nq ? p.q_pos[q0 + r0] : 0, r0 + 8 < nq ? p.q_pos[q0 + r0 + 8] : 0};
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    Qt[d * QT_LD + r] = r < nq ? qb[(long long)(q0 + r) * p.q_ss + d] : 0.f;
-  }
-  if (tid < BQ) {
-    qpos_s[tid] = tid < nq ? p.q_pos[q0 + tid] : 0;
-    m_s[tid] = NEG;
-    l_s[tid] = 0.f;
-  }
-  if (warp == 0) {
-    int mn = INT_MAX, mx = INT_MIN;
-    for (int r = lane; r < nq; r += 32) {
-      const int qp = p.q_pos[q0 + r];
-      mn = min(mn, qp);
-      mx = max(mx, qp);
+  float o[NT][4], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  const int nkt = (p.Sk + BT - 1) / BT;
+  for (int c0 = 0; c0 < nkt; c0 += MAXT) {
+    const int cnt = list_tiles<BT>(p.k_pos, p.Sk, nkt, c0, true, blk.x, blk.y, p.causal,
+                                   p.window, list, &count);
+    auto load = [&](int i) {
+      const int k0 = list[i].w * BT, s = i & 1;
+      float* K = Rs + 2 * s * BT * LD;
+      load_rows<BT, LD>(K, kb, p.k_ss, k0, p.Sk, D);
+      load_rows<BT, LD>(K + BT * LD, vb, p.v_ss, k0, p.Sk, D);
+      if (tid < BT) kpos_s[s][tid] = k0 + tid < p.Sk ? p.k_pos[k0 + tid] : -1;
+    };
+    if (cnt > 0) load(0);
+    cp_commit();
+    for (int i = 0; i < cnt; ++i) {
+      if (i + 1 < cnt) load(i + 1);
+      cp_commit();
+      cp_wait<1>();
+      __syncthreads();  // tile i (and Q) landed for every thread
+      const int4 e = list[i];
+      if (!tile_hidden(e.x, e.y, own.x, own.y, p.causal, p.window)) {
+        const bool whole = !e.z && (!p.causal || e.y <= own.x) &&
+                           (p.window <= 0 || (long long)e.x > (long long)own.y - p.window);
+        const float* K = Rs + 2 * (i & 1) * BT * LD + kh * 16 * LD;
+        const int* kp = kpos_s[i & 1] + kh * 16;
+        float s[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        mma_abt<NJ, LD>(s, Qs + rg * 16 * LD, K, D);
+        // a masked score is -inf, so its p is exactly 0 and a row with no
+        // key so far keeps m = NEG and l = 0
+        float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float x = s[j][c] * p.scale;
+            if (!whole && !allowed(qp[c / 2], kp[8 * j + 2 * t + (c & 1)], p.causal, p.window))
+              x = neg_inf();
+            s[j][c] = x;
+            mx[c / 2] = fmaxf(mx[c / 2], x);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+        }
+        float* xm = xmax[i & 1][kh];
+        if (t == 0) {
+          xm[r0] = mx[0];
+          xm[r0 + 8] = mx[1];
+        }
+        group_sync(rg);  // the pair's maxima are in; the buffer alternates by tile
+        const float* other = xmax[i & 1][1 - kh];
+        float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], fmaxf(mx[r], other[r0 + 8 * r]));
+          alpha[r] = expf(m[r] - m_new);
+          m[r] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[j][c] = expf(s[j][c] - m[c / 2]);
+            sum[c / 2] += s[j][c];
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          sum[r] += __shfl_xor_sync(FULL, sum[r], 1);
+          sum[r] += __shfl_xor_sync(FULL, sum[r], 2);
+          l[r] = l[r] * alpha[r] + sum[r];
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          o[n][0] *= alpha[0];
+          o[n][1] *= alpha[0];
+          o[n][2] *= alpha[1];
+          o[n][3] *= alpha[1];
+        }
+        mma_pb<NJ, NT, LD>(o, s, K + BT * LD, D);
+      }
+      __syncthreads();  // every warp is done with stage i & 1 before it is refilled
     }
-    warp_min_max(mn, mx);
-    if (lane == 0) {
-      range[0] = mn;
-      range[1] = mx;
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: the key halves' partial sums meet there
+  float4* part = reinterpret_cast<float4*>(Rs) + rg * NT * 32;
+  if (kh == 1) {
+    stash(part, o);
+    if (t == 0) {
+      xl[r0] = l[0];
+      xl[r0 + 8] = l[1];
     }
   }
   __syncthreads();
-  const int qmin = range[0], qmax = range[1];
+  if (kh == 1) return;
+  add_stash(o, part);
+  l[0] += xl[r0];
+  l[1] += xl[r0 + 8];
 
-  const int DC = D / 16;
-  float o[4][MAX_DC];
+  float* ob = p.o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= nq) continue;
+    const float lr = fmaxf(l[r], 1e-30f);
+    float* dst = ob + (long long)(q0 + row) * p.o_ss + 2 * t;
 #pragma unroll
-    for (int j = 0; j < MAX_DC; ++j) o[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < p.Sk; k0 += BK) {
-    const int nk = min(BK, p.Sk - k0);
-    if (warp == 0) {
-      int mn = INT_MAX, mx = INT_MIN;
-      for (int c = lane; c < BK; c += 32) {
-        const int kp = c < nk ? p.k_pos[k0 + c] : -1;
-        kpos_s[c] = kp;
-        if (kp >= 0) {
-          mn = min(mn, kp);
-          mx = max(mx, kp);
-        }
-      }
-      warp_min_max(mn, mx);
-      if (lane == 0) {
-        range[2] = mn;
-        range[3] = mx;
-      }
-    }
-    __syncthreads();  // kpos_s and the key range are visible
-    const bool skip = tile_hidden(range[2], range[3], qmin, qmax, p.causal, p.window);
-    __syncthreads();  // every thread has read range[] before warp 0 rewrites it
-    if (skip) continue;
-
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int c = i / D, d = i % D;
-      float kv = 0.f, vv = 0.f;
-      if (c < nk) {
-        kv = kb[(long long)(k0 + c) * p.k_ss + d];
-        vv = vb[(long long)(k0 + c) * p.v_ss + d];
-      }
-      Kt[d * KT_LD + c] = kv;
-      Vs[c * D + d] = vv;
-    }
-    __syncthreads();
-
-    // scores of rows 4ty..4ty+3 and columns 4tx..4tx+3
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(Qt + d * QT_LD + 4 * ty);
-      const float4 c = *reinterpret_cast<const float4*>(Kt + d * KT_LD + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], cv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      const long long qp = qpos_s[r];
-      float s[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const long long kp = kpos_s[4 * tx + j];
-        const bool ok = r < nq && kp >= 0 && (!p.causal || kp <= qp) &&
-                        (p.window <= 0 || kp > qp - p.window);
-        s[j] = ok ? acc[i][j] * p.scale : neg_inf();
-      }
-      *reinterpret_cast<float4*>(Ss + r * BK + 4 * tx) = make_float4(s[0], s[1], s[2], s[3]);
-    }
-    __syncthreads();
-
-    // online softmax: warp w owns rows 8w..8w+7; a masked score is -inf,
-    // so its p is exactly 0 and a fully masked row keeps m and l
-    for (int rr = 0; rr < BQ / 8; ++rr) {
-      const int r = warp * (BQ / 8) + rr;
-      const float s0 = Ss[r * BK + lane], s1 = Ss[r * BK + lane + 32];
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      Ss[r * BK + lane] = p0;
-      Ss[r * BK + lane + 32] = p1;
-      const float sum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        al_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // out = out * alpha + p @ v for rows 4ty..4ty+3, columns tx + 16 j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = al_s[4 * ty + i];
-#pragma unroll
-      for (int j = 0; j < MAX_DC; ++j) o[i][j] *= alpha;
-    }
-    for (int c = 0; c < nk; ++c) {
-      float pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = Ss[(4 * ty + i) * BK + c];
-#pragma unroll
-      for (int j = 0; j < MAX_DC; ++j) {
-        if (j < DC) {
-          const float vv = Vs[c * D + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) o[i][j] = fmaf(pr[i], vv, o[i][j]);
-        }
-      }
-    }
-    // the next tile's staging waits at its first barrier
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    if (r >= nq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < MAX_DC; ++j)
-      if (j < DC) ob[(long long)(q0 + r) * p.o_ss + tx + 16 * j] = o[i][j] / l;
+    for (int n = 0; n < NT; ++n)
+      if (8 * n < D)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(o[n][2 * r] / lr, o[n][2 * r + 1] / lr);
     // the row's log-sum-exp, -inf for a row with no key
-    if (p.lse != nullptr && tx == 0)
-      p.lse[((size_t)b * gridDim.y + h) * p.Sq + q0 + r] =
-          l_s[r] > 0.f ? m_s[r] + logf(l_s[r]) : neg_inf();
+    if (p.lse != nullptr && t == 0)
+      p.lse[((size_t)b * gridDim.y + h) * p.Sq + q0 + row] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : neg_inf();
   }
 }
 
-}  // namespace f32
+// ---- backward: dQ (and delta) ----
+// One block of 8 warps per (64 queries, h, b).  First the warps write delta
+// = rowsum(dO * O) of the block's rows (the dK/dV kernel, launched next,
+// reads it).  Then the key tiles the block may see go through a 2-stage
+// ring of K and V (16 keys a tile at DP >= 128, where Q, dO and the ring
+// fill 195 KB).  Warps w and w + 4 share row group rg = w % 4 and split
+// the work by role: warp w computes S = Q K^T and P = exp(scale S - lse)
+// under the masks, warp w + 4 dP = dO V^T (3xTF32, over the tile's keys);
+// they swap P and dP in shared memory (fragment order), both form dS =
+// P (dP - delta), and each adds dS K (3xTF32) into its half of dQ's
+// columns: no partial sums to add at the end.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) dq_kernel(const BwdParams p) {
+  using L = Shape<DP>;
+  constexpr int LD = L::LD, NT = L::NT, BK = L::DQ_BK, NJ = BK / 8;
+  extern __shared__ float4 smem4[];
+  float* const Qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]
+  float* const Gs = Qs + BQ * LD;                     // dO [BQ][LD]
+  float* const Rs = Gs + BQ * LD;  // stage s: K at Rs + 2 s BK LD, V BK LD after
+  __shared__ int4 list[MAXT];
+  __shared__ int kpos_s[2][BK];
+  __shared__ float lse_s[BQ], dl_s[BQ];
+  __shared__ float4 xs[4][2][NJ][32];  // each row group's P (role 0) and dP (role 1)
+  __shared__ int count;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  const int rg = warp % 4, role = warp / 4;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z, D = p.D, HD = D / 2;
+  const int nq = min(BQ, p.Sq - q0);
+  const size_t row0 = ((size_t)b * p.H + h) * p.Sq;
+  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+  load_rows<BQ, LD>(Qs, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, D);
+  load_rows<BQ, LD>(Gs, p.dout + b * p.g_sb + h * p.g_sh, p.g_ss, q0, p.Sq, D);
+  cp_commit();
+  // every row's delta, also a row no key sees: the dK/dV kernel reads them all
+  for (int r = warp; r < nq; r += WARPS) {
+    const float* orow = p.o + b * p.o_sb + h * p.o_sh + (long long)(q0 + r) * p.o_ss;
+    const float* grow = p.dout + b * p.g_sb + h * p.g_sh + (long long)(q0 + r) * p.g_ss;
+    float acc = 0.f;
+    for (int d = lane; d < D; d += 32) acc = fmaf(orow[d], grow[d], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      p.delta[row0 + q0 + r] = acc;
+      dl_s[r] = acc;
+    }
+  }
+  if (tid < BQ) {  // +inf for a row with no key or past Sq: p = 0
+    const float lv = tid < nq ? p.lse[row0 + q0 + tid] : neg_inf();
+    lse_s[tid] = lv > neg_inf() ? lv : pos_inf();
+    if (tid >= nq) dl_s[tid] = 0.f;
+  }
+  int2 blk, own;
+  query_ranges(p.q_pos, q0, nq, rg, blk, own);
+  const int r0 = rg * 16 + g;
+  const long long qp[2] = {r0 < nq ? p.q_pos[q0 + r0] : 0, r0 + 8 < nq ? p.q_pos[q0 + r0 + 8] : 0};
+
+  float acc[NT / 2][4];  // dQ's columns role * D / 2 ..
+#pragma unroll
+  for (int n = 0; n < NT / 2; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float ls[2], dl[2];
+  bool first = true;
+
+  const int nkt = (p.Sk + BK - 1) / BK;
+  for (int c0 = 0; c0 < nkt; c0 += MAXT) {
+    const int cnt = list_tiles<BK>(p.k_pos, p.Sk, nkt, c0, true, blk.x, blk.y, p.causal,
+                                   p.window, list, &count);
+    if (first) {  // lse_s and dl_s are visible past list_tiles' barriers
+      first = false;
+      ls[0] = lse_s[r0];
+      ls[1] = lse_s[r0 + 8];
+      dl[0] = dl_s[r0];
+      dl[1] = dl_s[r0 + 8];
+    }
+    auto load = [&](int i) {
+      const int k0 = list[i].w * BK, s = i & 1;
+      float* K = Rs + 2 * s * BK * LD;
+      load_rows<BK, LD>(K, kb, p.k_ss, k0, p.Sk, D);
+      load_rows<BK, LD>(K + BK * LD, vb, p.v_ss, k0, p.Sk, D);
+      if (tid < BK) kpos_s[s][tid] = k0 + tid < p.Sk ? p.k_pos[k0 + tid] : -1;
+    };
+    if (cnt > 0) load(0);
+    cp_commit();
+    for (int i = 0; i < cnt; ++i) {
+      if (i + 1 < cnt) load(i + 1);
+      cp_commit();
+      cp_wait<1>();
+      __syncthreads();
+      const int4 e = list[i];
+      if (!tile_hidden(e.x, e.y, own.x, own.y, p.causal, p.window)) {
+        const float* K = Rs + 2 * (i & 1) * BK * LD;
+        float s[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        if (role == 0) {
+          const bool whole = !e.z && (!p.causal || e.y <= own.x) &&
+                             (p.window <= 0 || (long long)e.x > (long long)own.y - p.window);
+          const int* kp = kpos_s[i & 1];
+          mma_abt<NJ, LD>(s, Qs + rg * 16 * LD, K, D);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const bool ok =
+                  whole || allowed(qp[c / 2], kp[8 * j + 2 * t + (c & 1)], p.causal, p.window);
+              s[j][c] = ok ? expf(s[j][c] * p.scale - ls[c / 2]) : 0.f;  // P
+            }
+        } else {
+          mma_abt<NJ, LD>(s, Gs + rg * 16 * LD, K + BK * LD, D);  // dP
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          xs[rg][role][j][lane] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+        group_sync(rg);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float4 x = xs[rg][1 - role][j][lane];
+          const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {  // dS = P (dP - delta), the same in both warps
+            const float pr = role == 0 ? s[j][c] : xv[c], dp = role == 0 ? xv[c] : s[j][c];
+            s[j][c] = pr * (dp - dl[c / 2]);
+          }
+        }
+        mma_pb<NJ, NT / 2, LD>(acc, s, K + role * HD, HD);
+      }
+      __syncthreads();
+    }
+  }
+  cp_wait<0>();
+
+  float* dqb = p.dq + row0 * D + role * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= nq) continue;
+    float* dst = dqb + (size_t)(q0 + row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT / 2; ++n)
+      if (8 * n < HD)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(acc[n][2 * r] * p.scale, acc[n][2 * r + 1] * p.scale);
+  }
+}
+
+// ---- backward: dK, dV ----
+// One block of 8 warps per (32 keys, h, b): K and V copied once, then the
+// query tiles (32 rows) the keys may be seen by go through a 2-stage ring
+// of Q and dO, with each row's position, lse and delta.  Keys are the rows
+// of every product (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T land in
+// the accumulator layout that mma_pb takes as A.  A 16 x D f32 accumulator
+// is D / 2 registers a thread, so the warps split the work three ways:
+// key group kg (16 keys), query half qh of each tile (16 queries), and
+// role: role 0 computes S^T, P^T (handed over in shared memory, in
+// fragment order) and dV += P^T dO; role 1 dP^T, then dS^T = P^T (dP^T -
+// delta) and dK += dS^T Q.  At the end the two query halves' partial sums
+// are added.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(const BwdParams p) {
+  using L = Shape<DP>;
+  constexpr int LD = L::LD, NT = L::NT, NJ = BT / 16;
+  extern __shared__ float4 smem4[];
+  float* const Ks = reinterpret_cast<float*>(smem4);  // [BT][LD]
+  float* const Vs = Ks + BT * LD;
+  float* const Rs = Vs + BT * LD;  // stage s: Q at Rs + 2 s BT LD, dO BT LD after
+  __shared__ float4 pt[2][2][NJ][32];  // P^T of each (key group, query half), fragment order
+  __shared__ int4 list[MAXT];
+  __shared__ int qpos_s[2][BT];
+  __shared__ float lse_s[2][BT], dl_s[2][BT];
+  __shared__ int count;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  const int role = warp % 2, kg = warp / 2 % 2, qh = warp / 4;
+  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z, D = p.D;
+  const int nk = min(BT, p.Sk - k0);
+  const size_t row0 = ((size_t)b * p.H + h) * p.Sq;
+  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const float* gb = p.dout + b * p.g_sb + h * p.g_sh;
+  load_rows<BT, LD>(Ks, p.k + b * p.k_sb + h * p.k_sh, p.k_ss, k0, p.Sk, D);
+  load_rows<BT, LD>(Vs, p.v + b * p.v_sb + h * p.v_sh, p.v_ss, k0, p.Sk, D);
+  cp_commit();
+  // the valid key positions of the block and of this key group's 16 rows,
+  // and whether the group holds a hole or a row past Sk
+  int bmin = INT_MAX, bmax = INT_MIN;
+  {
+    const int v = lane < nk ? p.k_pos[k0 + lane] : -1;
+    if (v >= 0) bmin = bmax = v;
+    warp_min_max(bmin, bmax);
+  }
+  int wmin = INT_MAX, wmax = INT_MIN;
+  const int v16 = lane < 16 && kg * 16 + lane < nk ? p.k_pos[k0 + kg * 16 + lane] : -1;
+  if (v16 >= 0) wmin = wmax = v16;
+  warp_min_max(wmin, wmax);
+  const bool hole = __any_sync(FULL, lane < 16 && v16 < 0);
+  const int r0 = kg * 16 + g;
+  const long long kp[2] = {r0 < nk ? p.k_pos[k0 + r0] : -1,
+                           r0 + 8 < nk ? p.k_pos[k0 + r0 + 8] : -1};
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int nqt = (p.Sq + BT - 1) / BT;
+  for (int c0 = 0; c0 < nqt; c0 += MAXT) {
+    const int cnt = list_tiles<BT>(p.q_pos, p.Sq, nqt, c0, false, bmin, bmax, p.causal,
+                                   p.window, list, &count);
+    auto load = [&](int i) {
+      const int q0 = list[i].w * BT, s = i & 1;
+      float* Q = Rs + 2 * s * BT * LD;
+      load_rows<BT, LD>(Q, qb, p.q_ss, q0, p.Sq, D);
+      load_rows<BT, LD>(Q + BT * LD, gb, p.g_ss, q0, p.Sq, D);
+      if (tid < BT) {  // lse +inf (p = 0) for a row with no key or past Sq
+        const int row = q0 + tid;
+        const bool in = row < p.Sq;
+        const float lv = in ? p.lse[row0 + row] : neg_inf();
+        qpos_s[s][tid] = in ? p.q_pos[row] : 0;
+        lse_s[s][tid] = lv > neg_inf() ? lv : pos_inf();
+        dl_s[s][tid] = in ? p.delta[row0 + row] : 0.f;
+      }
+    };
+    if (cnt > 0) load(0);
+    cp_commit();
+    for (int i = 0; i < cnt; ++i) {
+      if (i + 1 < cnt) load(i + 1);
+      cp_commit();
+      cp_wait<1>();
+      __syncthreads();
+      const int4 e = list[i];
+      const int st = i & 1, c16 = qh * 16;
+      const float* Q = Rs + 2 * st * BT * LD + c16 * LD;  // this warp's 16 queries
+      const float* G = Q + BT * LD;
+      const bool seen = !tile_hidden(wmin, wmax, e.x, e.y, p.causal, p.window);
+      float s[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      if (seen) {
+        if (role == 0) {
+          const bool whole = !hole && (!p.causal || wmax <= e.x) &&
+                             (p.window <= 0 || (long long)wmin > (long long)e.y - p.window);
+          mma_abt<NJ, LD>(s, Ks + kg * 16 * LD, Q, D);  // S^T
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int col = c16 + 8 * j + 2 * t + (c & 1);
+              const bool ok = whole || allowed(qpos_s[st][col], kp[c / 2], p.causal, p.window);
+              s[j][c] = ok ? expf(s[j][c] * p.scale - lse_s[st][col]) : 0.f;
+            }
+            pt[kg][qh][j][lane] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+          }
+        } else {
+          mma_abt<NJ, LD>(s, Vs + kg * 16 * LD, G, D);  // dP^T
+        }
+      }
+      __syncthreads();  // P^T handed over
+      if (seen) {
+        if (role == 0) {
+          mma_pb<NJ, NT, LD>(acc, s, G, D);  // dV += P^T dO
+        } else {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const float4 pr = pt[kg][qh][j][lane];
+            const float pv[4] = {pr.x, pr.y, pr.z, pr.w};
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              s[j][c] = pv[c] * (s[j][c] - dl_s[st][c16 + 8 * j + 2 * t + (c & 1)]);  // dS^T
+          }
+          mma_pb<NJ, NT, LD>(acc, s, Q, D);  // dK += dS^T Q
+        }
+      }
+      __syncthreads();  // stage i & 1 and P^T are free
+    }
+  }
+  cp_wait<0>();
+  // the ring is free (past the last barrier): the query halves' partial sums meet there
+  float4* part = reinterpret_cast<float4*>(Rs) + (warp % 4) * NT * 32;
+  if (qh == 1) stash(part, acc);
+  __syncthreads();
+  if (qh == 1) return;
+  add_stash(acc, part);
+
+  const float mul = role ? p.scale : 1.f;
+  float* out = (role ? p.dk : p.dv) + (((size_t)b * p.H + h) * p.Sk) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= nk) continue;
+    float* dst = out + (size_t)(k0 + row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      if (8 * n < D)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+  }
+}
+
+template <int DP>
+int launch_fwd(const FwdParams& p, int B, int H, cudaStream_t st) {
+  constexpr int smem = Shape<DP>::FA_SMEM;
+  const cudaError_t e =
+      cudaFuncSetAttribute(fa_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  fa_kernel<DP><<<dim3((p.Sq + BQ - 1) / BQ, H, B), THREADS, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// two launches in stream order: dQ (which writes delta), then dK/dV
+template <int DP>
+int launch_bwd(const BwdParams& p, int B, cudaStream_t st) {
+  using L = Shape<DP>;
+  cudaError_t e =
+      cudaFuncSetAttribute(dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DQ_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dkdv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::KV_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dq_kernel<DP><<<dim3((p.Sq + BQ - 1) / BQ, p.H, B), THREADS, L::DQ_SMEM, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dkdv_kernel<DP><<<dim3((p.Sk + BT - 1) / BT, p.H, B), THREADS, L::KV_SMEM, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// cp.async reads 16 bytes at a time: bases 16-byte aligned, strides in
+// multiples of 4 floats (the wrapper copies a tensor that has neither)
+bool aligned(std::initializer_list<const void*> ptrs, std::initializer_list<long long> strides) {
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  for (long long s : strides)
+    if (s % 4) return false;
+  return true;
+}
+
+}  // namespace tf
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma kernel fed by TMA
@@ -830,324 +1427,6 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
 }
 
 }  // namespace tc
-
-// ---------------------------------------------------------------------------
-// Backward, float32: CUDA-core kernels
-// ---------------------------------------------------------------------------
-
-namespace bwd {
-
-constexpr int BQ = 32;        // queries of a tile
-constexpr int BK = 32;        // keys of a tile
-constexpr int THREADS = 256;  // 8 warps
-constexpr int MAX_C = 8;      // output columns d = lane + 32 c, c < D / 32 rounded up
-constexpr int P_LD = BK + 4;  // row stride of the P / dS tiles (16-byte rows)
-
-struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* o;
-  const float* dout;
-  const float* lse;    // (B, H, Sq)
-  float* delta;        // (B, H, Sq): rowsum(dO * O)
-  float* dq;           // (B, H, Sq, D) contiguous
-  float* dk;           // (B, H, Sk, D) contiguous
-  float* dv;           // (B, H, Sk, D) contiguous
-  const int* q_pos;
-  const int* k_pos;
-  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, g_sb, g_sh,
-      g_ss;
-  int H, Sq, Sk, D, causal, window;
-  float scale;
-};
-
-__device__ __forceinline__ bool allowed(long long qp, long long kp, int causal, int window) {
-  return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
-}
-
-size_t smem_bytes(int D) {
-  return sizeof(float) * (4 * (size_t)BQ * (D + 4) + 2 * BQ * P_LD + 2 * BQ) +
-         sizeof(int) * (BQ + BK);
-}
-
-// delta[b, h, i] = sum_d dO[i, d] * O[i, d]: one warp a row
-__global__ void __launch_bounds__(THREADS) delta_kernel(const Params p) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int i = blockIdx.x * (THREADS / 32) + warp, h = blockIdx.y, b = blockIdx.z;
-  if (i >= p.Sq) return;
-  const float* o = p.o + b * p.o_sb + h * p.o_sh + i * p.o_ss;
-  const float* g = p.dout + b * p.g_sb + h * p.g_sh + i * p.g_ss;
-  float acc = 0.f;
-  for (int d = lane; d < p.D; d += 32) acc = fmaf(o[d], g[d], acc);
-  acc = warp_sum(acc);
-  if (lane == 0) p.delta[((size_t)b * p.H + h) * p.Sq + i] = acc;
-}
-
-// rows [r0, r0 + n) of a (., D) tile with element stride ss into smem rows
-// of stride ld; rows past n are zero
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, long long ss,
-                                          int r0, int n, int D) {
-  for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    dst[r * ld + d] = r < n ? src[(long long)(r0 + r) * ss + d] : 0.f;
-  }
-}
-
-// S = Q K^T and dP = dO V^T of one (32-query, 32-key) tile pair, then
-// P = exp(scale * S - lse) under the masks and dS = P (dP - delta); thread
-// (q = tid / 8, kk = tid % 8) owns keys kk + 8 j, so the 8 threads of a
-// quarter warp read 8 different K rows (conflict-free with the padded
-// stride) and one Q row (a broadcast).  Writes P and dS at ps[q * P_LD +
-// k] and ds[q * ds_q + k * ds_k].
-__device__ __forceinline__ void tile_p_ds(const float* Qs, const float* dOs, const float* Ks,
-                                          const float* Vs, int ld, const float* lse_s,
-                                          const float* dl_s, const int* qpos_s,
-                                          const int* kpos_s, int nq, const Params& p, float* ps,
-                                          float* ds, int ds_q, int ds_k) {
-  const int q = threadIdx.x / 8, kk = threadIdx.x % 8;
-  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int d = 0; d < p.D; d += 4) {
-    const float4 qv = *reinterpret_cast<const float4*>(Qs + q * ld + d);
-    const float4 gv = *reinterpret_cast<const float4*>(dOs + q * ld + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 kv = *reinterpret_cast<const float4*>(Ks + (kk + 8 * j) * ld + d);
-      const float4 vv = *reinterpret_cast<const float4*>(Vs + (kk + 8 * j) * ld + d);
-      s[j] = fmaf(qv.x, kv.x, fmaf(qv.y, kv.y, fmaf(qv.z, kv.z, fmaf(qv.w, kv.w, s[j]))));
-      dp[j] = fmaf(gv.x, vv.x, fmaf(gv.y, vv.y, fmaf(gv.z, vv.z, fmaf(gv.w, vv.w, dp[j]))));
-    }
-  }
-  const long long qp = qpos_s[q];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int k = kk + 8 * j;
-    const bool ok = q < nq && allowed(qp, kpos_s[k], p.causal, p.window);
-    const float pr = ok ? expf(s[j] * p.scale - lse_s[q]) : 0.f;
-    ps[q * P_LD + k] = pr;
-    ds[q * ds_q + k * ds_k] = pr * (dp[j] - dl_s[q]);
-  }
-}
-
-// the min and max of the valid positions (>= 0 for keys) of n entries
-__device__ __forceinline__ void pos_range(const int* pos, int n, bool keys, int* out) {
-  int mn = INT_MAX, mx = INT_MIN;
-  for (int r = threadIdx.x; r < n; r += 32) {
-    const int v = pos[r];
-    if (!keys || v >= 0) {
-      mn = min(mn, v);
-      mx = max(mx, v);
-    }
-  }
-  warp_min_max(mn, mx);
-  if (threadIdx.x == 0) {
-    out[0] = mn;
-    out[1] = mx;
-  }
-}
-
-// dK, dV of 32 keys: a loop over the query tiles the keys may be seen by.
-// Thread (warp kr, lane) accumulates keys 4 kr .. 4 kr + 3 at columns
-// lane + 32 c, in registers, summing the query tiles in order: no atomics.
-__global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  const int D = p.D, ld = D + 4;
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + BK * ld;
-  float* Qs = Vs + BK * ld;
-  float* dOs = Qs + BQ * ld;
-  float* Ps = dOs + BQ * ld;
-  float* dSs = Ps + BQ * P_LD;
-  float* lse_s = dSs + BQ * P_LD;
-  float* dl_s = lse_s + BQ;
-  int* qpos_s = reinterpret_cast<int*>(dl_s + BQ);
-  int* kpos_s = qpos_s + BQ;
-  __shared__ int range[4];  // valid key min, max; query min, max
-
-  const int tid = threadIdx.x, lane = tid % 32, kr = tid / 32;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int nk = min(BK, p.Sk - k0);
-  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const float* gb = p.dout + b * p.g_sb + h * p.g_sh;
-  const size_t row0 = ((size_t)b * p.H + h) * p.Sq;
-
-  load_tile(Ks, ld, kb, p.k_ss, k0, nk, D);
-  load_tile(Vs, ld, vb, p.v_ss, k0, nk, D);
-  if (tid < BK) kpos_s[tid] = tid < nk ? p.k_pos[k0 + tid] : -1;
-  __syncthreads();
-  if (tid < 32) pos_range(kpos_s, BK, true, range);
-
-  float dk[4][MAX_C], dv[4][MAX_C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < MAX_C; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  for (int q0 = 0; q0 < p.Sq; q0 += BQ) {
-    const int nq = min(BQ, p.Sq - q0);
-    if (tid < BQ) {
-      qpos_s[tid] = tid < nq ? p.q_pos[q0 + tid] : 0;
-      lse_s[tid] = tid < nq ? p.lse[row0 + q0 + tid] : 0.f;
-      dl_s[tid] = tid < nq ? p.delta[row0 + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-    if (tid < 32) pos_range(qpos_s, nq, false, range + 2);
-    __syncthreads();
-    const bool skip = tile_hidden(range[0], range[1], range[2], range[3], p.causal, p.window);
-    if (skip) {
-      __syncthreads();  // every thread has read range[] before it is rewritten
-      continue;
-    }
-    load_tile(Qs, ld, qb, p.q_ss, q0, nq, D);
-    load_tile(dOs, ld, gb, p.g_ss, q0, nq, D);
-    __syncthreads();
-    tile_p_ds(Qs, dOs, Ks, Vs, ld, lse_s, dl_s, qpos_s, kpos_s, nq, p, Ps, dSs, P_LD, 1);
-    __syncthreads();
-    for (int q = 0; q < nq; ++q) {
-      const float4 pr = *reinterpret_cast<const float4*>(Ps + q * P_LD + 4 * kr);
-      const float4 sr = *reinterpret_cast<const float4*>(dSs + q * P_LD + 4 * kr);
-      const float pv[4] = {pr.x, pr.y, pr.z, pr.w}, sv[4] = {sr.x, sr.y, sr.z, sr.w};
-#pragma unroll
-      for (int c = 0; c < MAX_C; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) {
-          const float g = dOs[q * ld + d], x = Qs[q * ld + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv[i][c] = fmaf(pv[i], g, dv[i][c]);
-            dk[i][c] = fmaf(sv[i], x, dk[i][c]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the next tile's loads overwrite Qs, dOs, P and dS
-  }
-
-  float* dkb = p.dk + (((size_t)b * p.H + h) * p.Sk) * D;
-  float* dvb = p.dv + (((size_t)b * p.H + h) * p.Sk) * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = 4 * kr + i;
-    if (k >= nk) continue;
-#pragma unroll
-    for (int c = 0; c < MAX_C; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) {
-        dkb[(size_t)(k0 + k) * D + d] = dk[i][c] * p.scale;
-        dvb[(size_t)(k0 + k) * D + d] = dv[i][c];
-      }
-    }
-  }
-}
-
-// dQ of 32 queries: a loop over the key tiles they may see.  Thread (warp
-// qr, lane) accumulates queries 4 qr .. 4 qr + 3 at columns lane + 32 c;
-// dS is staged transposed so a thread reads its 4 queries as one float4.
-__global__ void __launch_bounds__(THREADS, 1) dq_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  const int D = p.D, ld = D + 4;
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + BQ * ld;
-  float* Ks = dOs + BQ * ld;
-  float* Vs = Ks + BK * ld;
-  float* Ps = Vs + BK * ld;
-  float* dSt = Ps + BQ * P_LD;  // [key][query]
-  float* lse_s = dSt + BK * P_LD;
-  float* dl_s = lse_s + BQ;
-  int* qpos_s = reinterpret_cast<int*>(dl_s + BQ);
-  int* kpos_s = qpos_s + BQ;
-  __shared__ int range[4];  // query min, max; valid key min, max
-
-  const int tid = threadIdx.x, lane = tid % 32, qr = tid / 32;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int nq = min(BQ, p.Sq - q0);
-  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const float* gb = p.dout + b * p.g_sb + h * p.g_sh;
-  const size_t row0 = ((size_t)b * p.H + h) * p.Sq;
-
-  load_tile(Qs, ld, qb, p.q_ss, q0, nq, D);
-  load_tile(dOs, ld, gb, p.g_ss, q0, nq, D);
-  if (tid < BQ) {
-    qpos_s[tid] = tid < nq ? p.q_pos[q0 + tid] : 0;
-    lse_s[tid] = tid < nq ? p.lse[row0 + q0 + tid] : 0.f;
-    dl_s[tid] = tid < nq ? p.delta[row0 + q0 + tid] : 0.f;
-  }
-  __syncthreads();
-  if (tid < 32) pos_range(qpos_s, nq, false, range);
-
-  float dq[4][MAX_C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < MAX_C; ++c) dq[i][c] = 0.f;
-
-  for (int k0 = 0; k0 < p.Sk; k0 += BK) {
-    const int nk = min(BK, p.Sk - k0);
-    if (tid < BK) kpos_s[tid] = tid < nk ? p.k_pos[k0 + tid] : -1;
-    __syncthreads();
-    if (tid < 32) pos_range(kpos_s, BK, true, range + 2);
-    __syncthreads();
-    const bool skip = tile_hidden(range[2], range[3], range[0], range[1], p.causal, p.window);
-    if (skip) {
-      __syncthreads();  // every thread has read range[] before it is rewritten
-      continue;
-    }
-    load_tile(Ks, ld, kb, p.k_ss, k0, nk, D);
-    load_tile(Vs, ld, vb, p.v_ss, k0, nk, D);
-    __syncthreads();
-    tile_p_ds(Qs, dOs, Ks, Vs, ld, lse_s, dl_s, qpos_s, kpos_s, nq, p, Ps, dSt, 1, P_LD);
-    __syncthreads();
-    for (int k = 0; k < nk; ++k) {
-      const float4 sr = *reinterpret_cast<const float4*>(dSt + k * P_LD + 4 * qr);
-      const float sv[4] = {sr.x, sr.y, sr.z, sr.w};
-#pragma unroll
-      for (int c = 0; c < MAX_C; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) {
-          const float x = Ks[k * ld + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dq[i][c] = fmaf(sv[i], x, dq[i][c]);
-        }
-      }
-    }
-    __syncthreads();  // the next tile's loads overwrite K, V and dS
-  }
-
-  float* dqb = p.dq + row0 * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = 4 * qr + i;
-    if (q >= nq) continue;
-#pragma unroll
-    for (int c = 0; c < MAX_C; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) dqb[(size_t)(q0 + q) * D + d] = dq[i][c] * p.scale;
-    }
-  }
-}
-
-int launch(const Params& p, int B, cudaStream_t st) {
-  const size_t smem = smem_bytes(p.D);
-  cudaError_t e = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  delta_kernel<<<dim3((p.Sq + THREADS / 32 - 1) / (THREADS / 32), p.H, B), THREADS, 0, st>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dkdv_kernel<<<dim3((p.Sk + BK - 1) / BK, p.H, B), THREADS, smem, st>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dq_kernel<<<dim3((p.Sq + BQ - 1) / BQ, p.H, B), THREADS, smem, st>>>(p);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace bwd
 
 // ---------------------------------------------------------------------------
 // Backward, bfloat16: wgmma kernels fed by TMA
@@ -1783,9 +2062,10 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// float32.  q, k, v, o: (B, H, S, D) with element strides (sb, sh, ss) and
-// unit stride on D; q_pos (Sq,), k_pos (Sk,) contiguous int32; lse null,
-// or a contiguous (B, H, Sq) float32 buffer for the rows' log-sum-exp.
+// float32.  q, k, v, o: (B, H, S, D) with element strides (sb, sh, ss),
+// unit stride on D, 16-byte aligned bases and strides in multiples of 4
+// (the cp.async copies'); q_pos (Sq,), k_pos (Sk,) contiguous int32; lse
+// null, or a contiguous (B, H, Sq) float32 buffer for the rows' log-sum-exp.
 int flash_attention_f32_launch(const void* q, const void* k, const void* v, void* o,
                                void* lse, const void* q_pos, const void* k_pos, int B, int H,
                                int Sq, int Sk, int D, long long q_sb, long long q_sh, long long q_ss,
@@ -1793,22 +2073,22 @@ int flash_attention_f32_launch(const void* q, const void* k, const void* v, void
                                long long v_sh, long long v_ss, long long o_sb, long long o_sh,
                                long long o_ss, int causal, int window, double scale,
                                void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 || D < 16 ||
-      D > 16 * f32::MAX_DC || D % 16 != 0)
+  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 || D < 16 || D > 256 ||
+      D % 16 != 0 ||
+      !tf::aligned({q, k, v, o}, {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
+                                  o_sh, o_ss}))
     return (int)cudaErrorInvalidValue;
-  const f32::Params p{static_cast<const float*>(q), static_cast<const float*>(k),
-                      static_cast<const float*>(v), static_cast<float*>(o),
-                      static_cast<float*>(lse), static_cast<const int*>(q_pos),
-                      static_cast<const int*>(k_pos),
-                      q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                      Sq, Sk, D, causal, window, (float)scale};
-  const size_t smem = f32::smem_bytes(D);
-  cudaError_t e = cudaFuncSetAttribute(f32::fa_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Sq + f32::BQ - 1) / f32::BQ, H, B);
-  f32::fa_kernel<<<grid, f32::THREADS, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  const tf::FwdParams p{static_cast<const float*>(q), static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<float*>(o),
+                        static_cast<float*>(lse), static_cast<const int*>(q_pos),
+                        static_cast<const int*>(k_pos),
+                        q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+                        Sq, Sk, D, causal, window, (float)scale};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 32) return tf::launch_fwd<32>(p, B, H, st);
+  if (D <= 64) return tf::launch_fwd<64>(p, B, H, st);
+  if (D <= 128) return tf::launch_fwd<128>(p, B, H, st);
+  return tf::launch_fwd<256>(p, B, H, st);
 }
 
 // bfloat16.  q: (B, H, Sq, D); k, v: (Bk, Hk, Sk, D) with Bk in {1, B} and
@@ -1842,9 +2122,10 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v, voi
 
 // The float32 backward.  q, o, dout: (B, H, Sq, D); k, v: (B, H, Sk, D);
 // each with element strides (sb, sh, ss) (a stride-0 head axis allowed:
-// every head's own dK, dV are written) and unit stride on D; lse: the
-// forward's (B, H, Sq) float32 log-sum-exp; delta: (B, H, Sq) float32
-// scratch; dq (B, H, Sq, D), dk and dv (B, H, Sk, D) contiguous float32.
+// every head's own dK, dV are written), unit stride on D and the forward's
+// alignment; lse: the forward's (B, H, Sq) float32 log-sum-exp; delta:
+// (B, H, Sq) float32 scratch; dq (B, H, Sq, D), dk and dv (B, H, Sk, D)
+// contiguous float32.
 int flash_attention_bwd_f32_launch(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, const void* q_pos,
                                    const void* k_pos, void* delta, void* dq, void* dk, void* dv,
@@ -1854,18 +2135,24 @@ int flash_attention_bwd_f32_launch(const void* q, const void* k, const void* v, 
                                    long long o_sb, long long o_sh, long long o_ss, long long g_sb,
                                    long long g_sh, long long g_ss, int causal, int window,
                                    double scale, void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 || D < 16 ||
-      D > 32 * bwd::MAX_C || D % 16 != 0)
+  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 || D < 16 || D > 256 ||
+      D % 16 != 0 ||
+      !tf::aligned({q, k, v, dout, dq, dk, dv},
+                   {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, g_sb, g_sh, g_ss}))
     return (int)cudaErrorInvalidValue;
-  const bwd::Params p{static_cast<const float*>(q), static_cast<const float*>(k),
-                      static_cast<const float*>(v), static_cast<const float*>(o),
-                      static_cast<const float*>(dout), static_cast<const float*>(lse),
-                      static_cast<float*>(delta), static_cast<float*>(dq),
-                      static_cast<float*>(dk), static_cast<float*>(dv),
-                      static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
-                      q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                      g_sb, g_sh, g_ss, H, Sq, Sk, D, causal, window, (float)scale};
-  return bwd::launch(p, B, (cudaStream_t)stream);
+  const tf::BwdParams p{static_cast<const float*>(q), static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<const float*>(o),
+                        static_cast<const float*>(dout), static_cast<const float*>(lse),
+                        static_cast<float*>(delta), static_cast<float*>(dq),
+                        static_cast<float*>(dk), static_cast<float*>(dv),
+                        static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
+                        q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+                        g_sb, g_sh, g_ss, H, Sq, Sk, D, causal, window, (float)scale};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 32) return tf::launch_bwd<32>(p, B, st);
+  if (D <= 64) return tf::launch_bwd<64>(p, B, st);
+  if (D <= 128) return tf::launch_bwd<128>(p, B, st);
+  return tf::launch_bwd<256>(p, B, st);
 }
 
 // The bfloat16 backward.  q, o, dout: (B, H, Sq, D); k, v: (Bk, Hk, Sk, D)

@@ -8,26 +8,31 @@ counts the kernel launches, one per wrapper call that reaches the card.
 On the card the input type picks the kernel, a fixed choice: bfloat16
 goes to the tensor-core kernel (``wgmma`` fed by TMA; P is rounded to
 bfloat16 before P·V, as the reference's model path does), float32 to the
-CUDA-core kernel, exact to float32 rounding.
+3xTF32 kernel: every product on the tensor cores as lo·hi + hi·lo + hi·hi
+of TF32 halves (``ref.split_tf32``), float32 accuracy at a third of the
+TF32 rate; ``ref.attention_3xtf32_ref`` mirrors it.
 
 Both take q, k and v as they are: any strides on the batch, head and
 sequence axes (so a (B, S, H, D) projection viewed as (B, H, S, D), and
 one KV head expanded to H heads with stride 0, need no copy), unit
-stride on D.  The bfloat16 kernel reads through TMA, which wants
-16-byte aligned bases and strides; a tensor without them is copied
-first.  The output has q's type and q's layout.
+stride on D.  The bfloat16 kernels read through TMA and the float32
+kernels with 16-byte ``cp.async`` copies; both want 16-byte aligned bases
+and strides, and a tensor without them is copied first
+(``tma_view``, ``f32_view``).  The output has q's type and q's layout.
 
 On the card a call that needs a gradient goes through ``FlashAttention``,
 an ``autograd.Function``: its forward also writes each row's
-log-sum-exp (``flash_attention_lse``), and its backward is three more
-kernels (``flash_attention_bwd``: the rows' ``rowsum(dO * O)``, dK and dV
-over key tiles, dQ over query tiles), deterministic, chosen by type as
-the forward is: bfloat16 on ``wgmma`` fed by TMA (P^T, dS^T and dS
-rounded to bfloat16 only as the products' A operands, every sum in
-float32; ``ref.attention_bwd_bf16_ref`` mirrors it), float32 on CUDA
-cores, exact to float32 rounding.  K and V come in expanded to H
-heads (a stride-0 head axis for one KV head): the backward writes every
-head's dK and dV, and autograd's ``expand`` backward sums them.
+log-sum-exp (``flash_attention_lse``), and its backward is more kernels
+(``flash_attention_bwd``: the rows' ``rowsum(dO * O)``, dK and dV over
+key tiles, dQ over query tiles), deterministic, chosen by type as the
+forward is: bfloat16 in three launches on ``wgmma`` fed by TMA (P^T,
+dS^T and dS rounded to bfloat16 only as the products' A operands, every
+sum in float32; ``ref.attention_bwd_bf16_ref`` mirrors it), float32 in
+two 3xTF32 launches (dQ, which also writes ``rowsum(dO * O)``, then dK
+and dV; ``ref.attention_bwd_3xtf32_ref`` mirrors them).  K and V come in
+expanded to H heads (a stride-0 head axis for one KV head): the backward
+writes every head's dK and dV, and autograd's ``expand`` backward sums
+them.
 ``LAUNCHES["bwd"]`` counts backward calls that reach the card.
 """
 from __future__ import annotations
@@ -114,9 +119,9 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, with_lse):
                 *q_str, *k_str, *v_str, *out.stride()[:3],
                 int(causal), int(window), float(D) ** -0.5, _build.stream_of(q))
     else:
-        q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+        q, k, v = (f32_view(t) for t in (q, k, v))
         out = torch.empty_like(q)
-        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        strides = _f32_strides(q, k, v, out)
         with torch.cuda.device(q.device):
             err = lib.flash_attention_f32_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
@@ -166,8 +171,8 @@ def flash_attention_bwd(q, k, v, q_pos, k_pos, o, lse, do, *, causal: bool = Tru
                 Sq, Sk, D, *q_str, *k_str, *v_str, *o_str, *g_str, int(causal), int(window),
                 float(D) ** -0.5, _build.stream_of(q))
     else:
-        q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do))
-        strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
+        q, k, v, o, do = (f32_view(t) for t in (q, k, v, o, do))
+        strides = _f32_strides(q, k, v, o, do)
         with torch.cuda.device(q.device):
             err = lib.flash_attention_bwd_f32_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
@@ -228,3 +233,22 @@ def tma_view(t, shared: bool = True):
             return t, B, H, sb, sh, ss
         t = t.clone(memory_format=torch.contiguous_format)
     raise AssertionError(f"no TMA layout for a fresh {tuple(t.shape)} copy")
+
+
+def f32_view(t):
+    """A float32 (B, H, S, D) tensor as the float32 kernels' 16-byte
+    ``cp.async`` copies read it: ``t`` itself when its base is 16-byte
+    aligned, its D stride 1 and its other strides (of axes longer than 1;
+    0 for an expanded KV head) multiples of 4 elements, else a contiguous
+    copy."""
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+            s % 4 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _f32_strides(*ts):
+    """Each tensor's (B, H, S) element strides for the float32 launchers,
+    0 on a length-1 axis (never stepped over, so any stride ``f32_view``
+    let through there passes the launchers' alignment check)."""
+    return [s if n > 1 else 0 for t in ts for n, s in zip(t.shape[:3], t.stride()[:3])]

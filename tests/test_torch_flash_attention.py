@@ -256,6 +256,35 @@ def test_tma_view_layouts(layout):
     assert got.data_ptr() % 16 == 0
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "bshd", "mqa", "unaligned", "odd_stride",
+                                    "one_query"])
+def test_f32_view_layouts(layout):
+    """The float32 kernels' 16-byte ``cp.async`` copies: a (B, S, H, D)
+    projection viewed as (B, H, S, D), MQA's stride-0 head and a length-1
+    axis of any stride are read in place; an unaligned base or a stride
+    that is no multiple of 4 elements is copied to a contiguous tensor."""
+    B, S, H, D = 2, 5, 4, 32
+    base = torch.arange(4000, dtype=torch.float32)
+    if layout == "contiguous":
+        t = base[:B * H * S * D].view(B, H, S, D)
+    elif layout == "bshd":
+        t = base[:B * S * H * D].view(B, S, H, D).transpose(1, 2)
+    elif layout == "mqa":
+        t = base[:B * S * D].view(B, 1, S, D).expand(B, H, S, D)
+    elif layout == "unaligned":
+        t = base[1:1 + B * H * S * D].view(B, H, S, D)
+    elif layout == "odd_stride":
+        t = base[:B * H * S * (D + 1)].view(B, H, S, D + 1)[..., :D]
+    else:
+        t = base.as_strided((B, H, 1, D), (H * D, D, 7, 1))  # the length-1 axis' stride unused
+    got = ops.f32_view(t)
+    assert torch.equal(got, t)
+    in_place = layout in ("contiguous", "bshd", "mqa", "one_query")
+    assert (got.data_ptr() == t.data_ptr()) == in_place
+    assert got.data_ptr() % 16 == 0 and got.stride(-1) == 1
+    assert all(s % 4 == 0 for n, s in zip(got.shape[:3], got.stride()[:3]) if n > 1)
+
+
 # ---------------------------------------------------------------------------
 # Backward and the row log-sum-exp
 # ---------------------------------------------------------------------------
@@ -381,3 +410,132 @@ def test_attention_bwd_bf16_ref_matches_jax_vjp(B, H, Sq, Sk, D, causal, window,
                                    rtol=2.0 ** -7, err_msg=name)
     if holes:
         assert not got[0][:, :, 0].any()
+
+
+# ---------------------------------------------------------------------------
+# The float32 kernels' arithmetic: 3xTF32 products, mirrored in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def test_split_tf32_rounds_to_nearest_ties_away():
+    """``split_tf32`` as ``cvt.rna.tf32.f32``: hi and lo keep 10 explicit
+    mantissa bits (the low 13 bits zero), hi is the nearest TF32 value with
+    ties away from zero, and hi + lo leaves at most 2^-22 of x behind."""
+    x = torch.tensor([1.0, 1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -12, 1 + 2 ** -12,
+                      1 / 3, -1 / 3, 0.0, 1.5 * 2.0 ** -126, 65504.0])
+    hi, lo = ref.split_tf32(x)
+    assert hi[1] == 1 + 2 ** -10 and hi[2] == -(1 + 2 ** -10)  # ties away from zero
+    assert hi[3] == 1 + 2 ** -10 and hi[4] == 1.0  # nearest
+    rng = np.random.RandomState(0)
+    x = torch.cat([x, torch.from_numpy(rng.randn(10_000).astype(np.float32)
+                                       * np.float32(10.0) ** rng.randint(-8, 8, 10_000))])
+    hi, lo = ref.split_tf32(x)
+    assert not (_bits(hi) & 0x1FFF).any() and not (_bits(lo) & 0x1FFF).any()
+    xd, hd, ld = (t.double() for t in (x, hi, lo))
+    assert ((xd - hd).abs() <= 2.0 ** -11 * xd.abs()).all()
+    assert ((xd - hd - ld).abs() <= 2.0 ** -22 * xd.abs()).all()
+
+
+_F32_GRID = [  # the float32 cases of the reference's kernel-test grid, ring holes, D = 256
+    (1, 2, 64, 64, 32, True, 0, None),
+    (1, 2, 96, 160, 32, True, 48, None),
+    (1, 1, 64, 256, 64, False, 0, None),
+    (2, 2, 1, 96, 32, True, 0, None),
+    (1, 1, 2, 64, 16, True, 0, 40),
+    (1, 2, 200, 200, 256, True, 96, None),
+]
+
+
+def _f32_case(B, H, Sq, Sk, D, causal, window, holes):
+    q, k, v = _qkv(B * 7 + Sk + D, B, H, Sq, Sk, D)
+    q_pos = np.arange(Sk - Sq, Sk, dtype=np.int32) if causal else np.arange(Sq, dtype=np.int32)
+    k_pos = np.arange(Sk, dtype=np.int32)
+    if holes:
+        k_pos = np.where(k_pos < holes, k_pos, -1).astype(np.int32)
+        q_pos = np.asarray([holes - 1, -5], np.int32)
+    return q, k, v, q_pos, k_pos
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,window,holes", _F32_GRID)
+def test_3xtf32_forward_matches_reference_kernel(B, H, Sq, Sk, D, causal, window, holes):
+    """``attention_3xtf32_ref`` (the float32 kernel's arithmetic: 3xTF32
+    products, 32-key tiles split in two halves with their own sums) against
+    the reference's Pallas kernel (interpret mode) within the reference's
+    float32 tolerance 2e-5, and its lse against ``lse_ref``.  Why it holds:
+    each split product is exact in float32 and the dropped lo·lo term and
+    lo's own rounding sit near 2^-22 of a product, so the output moves by a
+    few float32 roundings; the one-term test below shows the split is
+    needed."""
+    q, k, v, q_pos, k_pos = _f32_case(B, H, Sq, Sk, D, causal, window, holes)
+    kw = dict(causal=causal, window=window)
+    args = [torch.from_numpy(a) for a in (q, k, v, q_pos, k_pos)]
+    got, lse = ref.attention_3xtf32_ref(*args, **kw)
+    want = ref_ops.flash_attention(*(jnp.asarray(a) for a in (q, k, v, q_pos, k_pos)),
+                                   blk_q=32, blk_k=32, **kw)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+    want_lse = ref.lse_ref(*args[:2], *args[3:], **kw)
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(want_lse))
+    finite = torch.isfinite(want_lse)
+    np.testing.assert_allclose(lse[finite].numpy(), want_lse[finite].numpy(), atol=2e-5,
+                               rtol=2e-5)
+    if holes:
+        assert not got[:, :, 1].any()
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,window,holes", [
+    (1, 2, 40, 40, 16, True, 0, False),
+    (2, 1, 48, 80, 32, True, 24, False),   # window, Sq < Sk
+    (1, 2, 33, 50, 16, False, 0, False),   # cross attention
+    (1, 1, 45, 45, 32, True, 10, True),    # holes, a row with no key
+    (1, 2, 200, 200, 256, True, 96, False),  # D = 256: dQ's key tiles of 16
+    (1, 2, 100, 100, 48, False, 0, False),   # D = 48 (compiled as 64)
+])
+def test_attention_bwd_3xtf32_ref_matches_jax_vjp(B, H, Sq, Sk, D, causal, window, holes):
+    """``attention_bwd_3xtf32_ref`` (the float32 backward kernels'
+    arithmetic) against jax.vjp of the reference's oracle, within 2e-5."""
+    from repro.kernels.flash_attention.ref import attention_ref as jax_attention
+
+    q, k, v, do, q_pos, k_pos = _bwd_case(Sq + D, B, H, Sq, Sk, D, causal, window, holes)
+    kw = dict(causal=causal, window=window)
+    out, vjp = jax.vjp(lambda a, b, c: jax_attention(a, b, c, jnp.asarray(q_pos),
+                                                      jnp.asarray(k_pos), **kw),
+                       *(jnp.asarray(a) for a in (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo, tqp, tkp = (torch.from_numpy(a) for a in (q, k, v, do, q_pos, k_pos))
+    lse = ref.lse_ref(tq, tk, tqp, tkp, **kw)
+    got = ref.attention_bwd_3xtf32_ref(tq, tk, tv, tqp, tkp, torch.from_numpy(np.array(out)),
+                                       lse, tdo, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), w, atol=2e-5, rtol=2e-5, err_msg=name)
+    if holes:
+        assert not got[0][:, :, 0].any()
+
+
+def test_one_term_tf32_misses_the_tolerance():
+    """The reason for the split: at D = 256 one TF32 product per product
+    (``terms=1``: 11 significant bits) puts the forward and every gradient
+    outside 2e-5 of the reference, where the 3xTF32 arithmetic sits inside
+    it (the tests above)."""
+    from repro.kernels.flash_attention.ref import attention_ref as jax_attention
+
+    B, H, S, D, window = 1, 2, 200, 256, 96
+    q, k, v, q_pos, k_pos = _f32_case(B, H, S, S, D, True, window, None)
+    kw = dict(causal=True, window=window)
+    args = [torch.from_numpy(a) for a in (q, k, v, q_pos, k_pos)]
+    out, vjp = jax.vjp(lambda a, b, c: jax_attention(a, b, c, jnp.asarray(q_pos),
+                                                      jnp.asarray(k_pos), **kw),
+                       *(jnp.asarray(a) for a in (q, k, v)))
+    do = np.random.RandomState(1).randn(B, H, S, D).astype(np.float32) * 0.5
+    lse = ref.lse_ref(*args[:2], *args[3:], **kw)
+    one = [ref.attention_3xtf32_ref(*args, terms=1, **kw)[0]] + list(
+        ref.attention_bwd_3xtf32_ref(*args, torch.from_numpy(np.array(out)), lse,
+                                     torch.from_numpy(do), terms=1, **kw))
+    want = [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    for name, g, w in zip(("out", "dq", "dk", "dv"), one, want):
+        assert not np.allclose(g.numpy(), w, atol=2e-5, rtol=2e-5), name

@@ -7,7 +7,13 @@ reverse chunk decomposition), and the wrappers' gradients through their
 CPU.  Causal, windowed and cross masks, ring-cache holes, a row with no
 key, one KV head at stride 0, ragged tiles and chunks; float32 within
 2e-5 and bfloat16 within 2e-2 (the reference's kernel-test tolerances),
-the log-sum-exp within 1e-4.  Needs the card; run there with
+the log-sum-exp within 1e-4.  The float32 kernels are also held within
+2^-16 of each output's largest value of the emulation of their 3xTF32
+arithmetic (``ref.attention_3xtf32_ref``, ``ref.attention_bwd_3xtf32_ref``),
+at the reduced train step's shape, past 256 tiles of 32 (the kernels list
+the tiles they may see 256 at a time) and on the layouts a caller may pass
+(a (B, S, H, D) view, MQA's stride-0 head, an unaligned base, a sequence
+stride that is no multiple of 4).  Needs the card; run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_bwd_cuda.py
 """
@@ -24,6 +30,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 LSE_TOL = dict(atol=1e-4, rtol=1e-4)
+F32_REF_TOL = 2.0 ** -16  # chip_smoke's: split products, sums rounded otherwise
 
 
 @pytest.fixture
@@ -59,6 +66,9 @@ ATTN_CASES = [
     (2, 2, 1, 96, 32, True, 0, False, torch.float32, False),
     (1, 2, 70, 70, 16, True, 0, True, torch.float32, True),
     (1, 2, 77, 77, 256, True, 20, True, torch.float32, False),
+    (4, 4, 64, 64, 16, True, 32, False, torch.float32, True),  # the reduced train step
+    (2, 2, 130, 130, 128, True, 40, True, torch.float32, True),  # dQ's 16-key tiles
+    (1, 1, 8300, 8300, 16, True, 64, False, torch.float32, False),  # 260 tiles of 32
     (2, 4, 300, 300, 256, True, 128, False, torch.bfloat16, True),
     (1, 2, 200, 200, 64, True, 0, False, torch.bfloat16, False),
     (2, 3, 129, 129, 128, True, 40, True, torch.bfloat16, True),
@@ -98,6 +108,61 @@ def test_attention_lse_and_backward_kernels(card, B, H, Sq, Sk, D, causal, windo
         assert not got[0][:, :, 0].any()
     again = fa_ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+    if dtype == torch.float32:
+        _hold_to_3xtf32(q, k, v, q_pos, k_pos, out, lse, do, got, kw)
+
+
+def _hold_to_3xtf32(q, k, v, q_pos, k_pos, out, lse, do, grads, kw):
+    """The float32 kernels' outputs against the emulation of their 3xTF32
+    arithmetic, within F32_REF_TOL of each output's largest value."""
+    want = [fa_ref.attention_3xtf32_ref(q, k, v, q_pos, k_pos, **kw)[0]]
+    want += fa_ref.attention_bwd_3xtf32_ref(q, k, v, q_pos, k_pos, out, lse, do, **kw)
+    for name, a, w in zip(("out", "dq", "dk", "dv"), (out,) + tuple(grads), want):
+        lim = F32_REF_TOL * float(w.abs().max())
+        torch.testing.assert_close(a, w, atol=lim, rtol=F32_REF_TOL, msg=name)
+
+
+@pytest.mark.parametrize("layout", ["bshd", "mqa_bshd", "unaligned", "odd_stride"])
+def test_f32_attention_layouts(card, layout):
+    """float32 q, k, v (and o, dO) as a caller may pass them: a (B, S, H,
+    D) projection viewed as (B, H, S, D) and MQA's stride-0 head go to the
+    kernels in place; an unaligned base and a sequence stride of D + 1
+    are copied first (``f32_view``).  Forward and backward against the
+    plain versions and the 3xTF32 emulation."""
+    B, S, H, D = 2, 77, 3, 32
+    g = torch.Generator(device="cpu").manual_seed(7)
+
+    def make(heads):
+        x = torch.randn(B, S, heads, D, generator=g) * 0.5
+        if layout == "unaligned":
+            flat = torch.empty(x.numel() + 1)
+            flat[1:] = x.flatten()
+            return flat.to(card)[1:].view(B, S, heads, D).transpose(1, 2)
+        if layout == "odd_stride":
+            wide = torch.zeros(B, S, heads, D + 1)
+            wide[..., :D] = x
+            return wide.to(card).transpose(1, 2)[..., :D]
+        return x.to(card).transpose(1, 2)
+
+    q, do = make(H), make(H)
+    if layout == "mqa_bshd":
+        k, v = (make(1).expand(B, H, S, D) for _ in range(2))
+        assert k.stride(1) == 0
+    else:
+        k, v = make(H), make(H)
+    in_place = layout in ("bshd", "mqa_bshd")
+    assert all((fa_ops.f32_view(t).data_ptr() == t.data_ptr()) == in_place for t in (q, k, v))
+    pos = torch.arange(S, dtype=torch.int32, device=card)
+    kw = dict(causal=True, window=30)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, pos, pos, **kw)
+    got = fa_ops.flash_attention_bwd(q, k, v, pos, pos, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, fa_ref.attention_ref(q, k, v, pos, pos, **kw),
+                               **TOL[torch.float32])
+    want = fa_ref.attention_bwd_ref(q, k, v, pos, pos, out, lse, do, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, w, msg=name, **TOL[torch.float32])
+    _hold_to_3xtf32(q, k, v, pos, pos, out, lse, do, got, kw)
 
 
 def test_attention_bf16_backward_is_deterministic(card):
@@ -204,3 +269,26 @@ def test_rglru_function_gradients(card):
     want = torch.autograd.grad(rg_ops.rglru(la_h, b_h), (la_h, b_h), dh.cpu())
     for a, w in zip(got, want):
         torch.testing.assert_close(a.cpu(), w, **TOL[torch.float32])
+
+
+def test_f32_single_query_any_stride(card):
+    """A single query (Sq = 1, as in decoding) whose sequence stride is no
+    multiple of 4: the kernels never step over that axis, so they read q
+    in place (the launchers get stride 0 there)."""
+    B, H, Sk, D = 2, 3, 96, 32
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = (torch.randn(B * H * D, generator=g) * 0.5).to(card).as_strided((B, H, 1, D),
+                                                                        (H * D, D, 7, 1))
+    k, v, do = ((torch.randn(B, H, n, D, generator=g) * 0.5).to(card) for n in (Sk, Sk, 1))
+    q_pos = torch.tensor([Sk - 1], dtype=torch.int32, device=card)
+    k_pos = torch.arange(Sk, dtype=torch.int32, device=card)
+    assert fa_ops.f32_view(q).data_ptr() == q.data_ptr()
+    kw = dict(causal=True, window=40)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, q_pos, k_pos, **kw)
+    got = fa_ops.flash_attention_bwd(q, k, v, q_pos, k_pos, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, fa_ref.attention_ref(q, k, v, q_pos, k_pos, **kw),
+                               **TOL[torch.float32])
+    want = fa_ref.attention_bwd_ref(q, k, v, q_pos, k_pos, out, lse, do, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, w, msg=name, **TOL[torch.float32])
