@@ -31,7 +31,15 @@ one JSON line; any failure exits non-zero:
    decode tokens/s, parameter bytes, peak memory), a batch-1 check that
    prefill(S-1) + decode_step gives prefill(S)'s last logits, and the
    reduced config on the card against the CPU's plain versions.  Then the
-   LM training path: ``launch.train.run`` on ``recurrentgemma-9b`` at full
+   MoE and xLSTM families: ``serve("phi3.5-moe-42b-a6.6b", 4, 4096, 16)``
+   at full width cut to MOE_LAYERS layers (``flash_attention`` once a
+   layer) and ``serve("xlstm-350m", 4, 4096, 16)`` whole (no kernel), each
+   with a handoff check (MoE: prefill(1023) + decode against
+   prefill(1024) with capacity for every token; xLSTM: prefill(4096) +
+   256 decode steps, each against the forward's logits over the 4352
+   tokens at its position), and the reduced mixtral,
+   phi3.5-moe and xlstm configs on the card against the CPU (forward,
+   prefill and 4 decode steps within 1e-4).  Then the LM training path: ``launch.train.run`` on ``recurrentgemma-9b`` at full
    width cut to 5 layers (float32 masters, bf16 activations, remat
    "full"), 3 AdamW steps on 2 x 4096 tokens of ``SyntheticLM(seed=0)``
    (losses, grad norms, seconds per step, peak memory, every parameter's
@@ -606,48 +614,248 @@ def lm_consistency(model, S: int):
     last-token logits of prefill(S).  S > window, so the ring cache (rolled
     at prefill, overwritten by the decode) and the RG-LRU state handoff run
     through both paths."""
+    handoff_check(model, S - 1, 1, LM_CONSISTENCY_REL, "lm prefill+decode vs prefill")
+
+
+def handoff_check(model, prefill_len: int, steps: int, bound: float, what: str,
+                  steps_bound=None, **note):
+    """Batch 1: prefill(prefill_len), then ``steps`` decode steps
+    teacher-forced on the same tokens.  One step: its logits against the
+    last-token logits of prefill(prefill_len + 1).  More: each step's
+    against the forward's logits at its position over the whole sequence
+    (the same pass as its prefill, all positions kept).  The first step's
+    relative L2 (the handoff) must be within ``bound``, every step's within
+    ``steps_bound`` (default ``bound``).  ``note`` goes into the printed
+    line; a callable in it is called after the run."""
     dev = model.embed.device
+    n = prefill_len + steps
     tokens = torch.from_numpy(np.random.RandomState(1).randint(
-        0, model.cfg.vocab_size, size=(1, S)).astype(np.int32)).to(dev)
+        0, model.cfg.vocab_size, size=(1, n)).astype(np.int32)).to(dev)
     with torch.inference_mode():
-        full, _ = model.prefill(tokens, cache_len=S + 8)
-        _, caches = model.prefill(tokens[:, :-1], cache_len=S + 8)
-        step, _ = model.decode_step(caches, tokens[:, -1:],
-                                    torch.tensor([S - 1], dtype=torch.int32, device=dev))
-    want, got = full[0, -1], step[0, -1]
+        if steps == 1:
+            want = model.prefill(tokens, cache_len=n + 8)[0][0]
+        else:
+            want = model(tokens)[0, prefill_len:]
+        _, caches = model.prefill(tokens[:, :prefill_len], cache_len=n + 8)
+        got = []
+        for t in range(prefill_len, n):
+            step, caches = model.decode_step(caches, tokens[:, t:t + 1],
+                                             torch.tensor([t], dtype=torch.int32, device=dev))
+            got.append(step[0, -1])
+    got = torch.stack(got)
     if not (torch.isfinite(want).all() and torch.isfinite(got).all()):
-        fail("lm consistency: non-finite logits")
-    rel = float((got - want).norm() / want.norm())
-    emit(phase="main_path", check="lm prefill+decode vs prefill", S=S,
-         rel_l2=rel, bound=LM_CONSISTENCY_REL,
+        fail(f"{what}: non-finite logits")
+    rels = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+    steps_bound = bound if steps_bound is None else steps_bound
+    emit(phase="main_path", check=what, arch=model.cfg.name, layers=model.cfg.n_layers,
+         S=n, prefill_len=prefill_len, decode_steps=steps, rel_l2=rels[0], bound=bound,
+         max_step_rel_l2=max(rels), steps_bound=steps_bound, last_step_rel_l2=rels[-1],
          max_abs_diff=float((got - want).abs().max()), max_abs=float(want.abs().max()),
-         same_argmax=bool(got.argmax() == want.argmax()))
-    if not rel <= LM_CONSISTENCY_REL:
-        fail(f"lm consistency: relative L2 {rel} > {LM_CONSISTENCY_REL}")
+         same_argmax=float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+         **{k: v() if callable(v) else v for k, v in note.items()})
+    if not (rels[0] <= bound and max(rels) <= steps_bound):
+        fail(f"{what}: relative L2 {rels[0]} at the first step (bound {bound}), "
+             f"{max(rels)} at most (bound {steps_bound})")
 
 
-def lm_reduced_card_vs_cpu(device):
-    """The reduced config (float32, head dim 16) on the card through both
-    kernels against the same weights on the CPU through the plain
-    versions: forward logits and prefill logits within 1e-4."""
+def lm_reduced_card_vs_cpu(device, arch: str = LM_ARCH):
+    """``arch``'s reduced config (float32, head dim 16) on the card through
+    its kernels against the same weights on the CPU through the plain
+    versions: forward logits, prefill logits and 4 decode steps' logits
+    within 1e-4."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import lm
 
-    cfg = serve_mod.serving_config(LM_ARCH, reduced=True)
+    cfg = serve_mod.serving_config(arch, reduced=True)
     card = lm.init(cfg, seed=3, device=device)
     host = lm.from_state_dict(cfg, {k: v.cpu() for k, v in card.state_dict().items()},
                               device="cpu")
     tokens = torch.from_numpy(np.random.RandomState(2).randint(
-        0, cfg.vocab_size, size=(2, 80)).astype(np.int32))
+        0, cfg.vocab_size, size=(2, 84)).astype(np.int32))
     err = 0.0
+
+    def check(got, want, what):
+        nonlocal err
+        got = got.cpu()
+        if not torch.allclose(got, want, **LM_REDUCED_TOL):
+            fail(f"lm reduced {arch}: {what}, card vs CPU max err "
+                 f"{float((got - want).abs().max())}")
+        err = max(err, float((got - want).abs().max()))
+
     with torch.inference_mode():
-        for fn in (lambda m, t: m(t), lambda m, t: m.prefill(t, cache_len=96)[0]):
-            got, want = fn(card, tokens.to(device)).cpu(), fn(host, tokens)
-            if not torch.allclose(got, want, **LM_REDUCED_TOL):
-                fail(f"lm reduced: card vs CPU max err {float((got - want).abs().max())}")
-            err = max(err, float((got - want).abs().max()))
-    emit(phase="main_path", check="lm reduced card vs cpu", layers=cfg.n_layers,
+        check(card(tokens[:, :80].to(device)), host(tokens[:, :80]), "forward")
+        got, c_card = card.prefill(tokens[:, :80].to(device), cache_len=96)
+        want, c_host = host.prefill(tokens[:, :80], cache_len=96)
+        check(got, want, "prefill")
+        for t in range(80, 84):
+            pos = torch.full((2,), t, dtype=torch.int32)
+            got, c_card = card.decode_step(c_card, tokens[:, t:t + 1].to(device),
+                                           pos.to(device))
+            want, c_host = host.decode_step(c_host, tokens[:, t:t + 1], pos)
+            check(got, want, f"decode step {t - 80}")
+    emit(phase="main_path", check="lm reduced card vs cpu", arch=arch, layers=cfg.n_layers,
+         kinds=sorted({b.kind for b in card.layers}), moe=cfg.is_moe, window=cfg.window,
          max_abs_err=err, tol=LM_REDUCED_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: the MoE and xLSTM families
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, XLSTM_ARCH = "phi3.5-moe-42b-a6.6b", "xlstm-350m"
+# phi3.5-moe at full width, cut in depth: a layer holds 1,300,316,160
+# parameters (16 experts x 3 x 4096 x 6400, 41.9 M of attention), 2.60 GB
+# in bf16, the embedding and LM head 0.53 GB: all 32 layers need 83.7 GB,
+# more than the card holds.  MOE_LAYERS is the deepest cut whose serving
+# peak (weights, KV cache and one layer's dispatch buffers) stays under
+# about 75 GB.
+MOE_LAYERS = 26
+# the MoE handoff check runs one routing group each way: prefill(1023) +
+# decode against prefill(1024)
+MOE_HANDOFF_S = 1024
+# the xLSTM handoff check: prefill(4096), then 256 teacher-forced decode
+# steps against the forward over the 4352 tokens: the mLSTM chunk carry (16
+# chunks of 256), mlstm_step and the sLSTM state across the handoff
+XLSTM_PREFILL, XLSTM_STEPS = 4096, 256
+# the MoE handoff in bf16: 1.2% (width 64) and 7.4% (width 256, where bf16
+# rounding gave one of the 24 layers other experts for the last token)
+# relative L2; faults of the handoff move it 58-130% (the prompt's KV lost,
+# the layers' caches handed to the wrong layers, the decode token's FFN
+# dropped; tools/lm_bf16_consistency.py, on the CPU).  The bound lies
+# between, with room for a routing flip or two at full width.  Faults
+# smaller than the bf16 noise (one KV entry lost, 1.9-37%; the decode
+# position one off, 4.1-4.5%) are beyond this check.
+MOE_CONSISTENCY_REL = 2.0 ** -2
+# the xLSTM handoff in bf16, relative L2 at the first decode step: 1.6%
+# (width 64) and 2.2% (width 256) on the CPU, 5.0% at full width on an
+# H100; its faults move that step 28-34% (the sLSTM h reset) and 114-142%
+# (the mLSTM conv tail dropped; tools/lm_bf16_consistency.py, on the CPU).
+# The bound lies between.  Zeroing the mLSTM stabilizer m moves it 4.8-4.9%,
+# inside the bf16 noise: beyond this check.  Over the 256 steps bf16 drift
+# reaches 13-23% and the faults wash out (the last step moves 8.1-9.6% with
+# or without them), so the later steps are held only to 2^-1: a decode step
+# that goes wrong, not the handoff.
+XLSTM_CONSISTENCY_REL = 2.0 ** -3
+XLSTM_STEPS_REL = 2.0 ** -1
+FAMILY_REDUCED = ("mixtral-8x22b", MOE_ARCH, XLSTM_ARCH)
+
+
+def family_serve(device, arch: str, layers=None, recorder=None, reduced=False):
+    """``serve(arch, 4, 4096, 16)`` in bf16 with seeded weights at full
+    width (cut to ``layers`` layers when given), the kernels' launch counts
+    zeroed just before and read just after: ``flash_attention`` must launch
+    once per attention layer (in the prefill; decode attends in plain
+    torch) and no other kernel at all.  Returns (model, launches)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm
+
+    full = serve_mod.serving_config(arch, reduced=reduced)
+    cfg = full.replace(n_layers=layers) if layers and not reduced else full
+    prompt = LM_PROMPT if not reduced else 48
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, seed=0, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    tag = f"{cfg.family} serve"
+    if recorder is not None:
+        recorder.tag = tag
+        recorder.wrap(fa_ops, "flash_attention", "flash_attention")
+    for mod in (fa_ops, rg_ops):
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    try:
+        gen, stats = serve_mod.serve(arch, LM_BATCH, prompt, LM_GEN, reduced=reduced, seed=0,
+                                     device=device, params=model)
+    finally:
+        if recorder is not None:
+            recorder.restore()
+    launches = {"flash_attention": fa_ops.LAUNCHES["flash_attention"],
+                "flash_attention.bwd": fa_ops.LAUNCHES["bwd"],
+                "rglru_scan": rg_ops.LAUNCHES["rglru"], "rglru_scan.bwd": rg_ops.LAUNCHES["bwd"]}
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    want = dict.fromkeys(launches, 0)
+    if device.type == "cuda":
+        want["flash_attention"] = sum(b.kind == "attn" for b in model.layers)
+    emit(phase="main_path", check=tag, arch=arch, reduced=reduced, layers=cfg.n_layers,
+         full_depth=full.n_layers, d_model=cfg.d_model, batch=LM_BATCH, prompt_len=prompt,
+         gen_tokens=LM_GEN, dtype=cfg.dtype, init_seconds=init_s,
+         prefill_seconds=stats["prefill_s"], decode_seconds=stats["decode_s"],
+         decode_tok_per_s=stats["tok_per_s"], params=sum(p.numel() for p in model.parameters()),
+         param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+         peak_memory_bytes=peak, launches=launches, first_tokens=gen[0, :4].tolist())
+    if gen.shape != (LM_BATCH, LM_GEN) or not ((gen >= 0) & (gen < cfg.vocab_size)).all():
+        fail(f"{tag}: tokens {gen.shape} outside [0, {cfg.vocab_size})")
+    if not stats["logits_finite"]:
+        fail(f"{tag}: non-finite decode logits")
+    if launches != want:
+        fail(f"{tag} launched {launches}, not {want}")
+    return model, launches
+
+
+def _with_config(model, cfg) -> None:
+    """Run ``model`` under ``cfg`` (a copy that differs in a routing option)."""
+    model.cfg = cfg
+    for layer in model.layers:
+        layer.cfg = cfg
+
+
+def moe_consistency(model) -> None:
+    """prefill(S-1) + decode_step against prefill(S), S one routing group,
+    under a copy of the config with capacity_factor = n_experts / top_k:
+    an expert then has a slot for every token of a group, so no token is
+    dropped (asserted from ``_capacity``) and both paths compute the same
+    function.  With the served capacity they do not: dropping depends on a
+    token's rank in its group, and the last token is the first to go."""
+    from repro_torch.models import moe
+
+    cfg = model.cfg
+    check = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    for g in (MOE_HANDOFF_S - 1, MOE_HANDOFF_S, 1):
+        if moe._capacity(check, g) < g:
+            fail(f"moe handoff: capacity {moe._capacity(check, g)} < {g} tokens a group")
+    picks, route = [], moe._route
+
+    def recording(p, x2d, cfg):  # each layer's experts for the sequence's last token
+        out = route(p, x2d, cfg)
+        picks.append(set(out[1][-1].tolist()))
+        return out
+
+    _with_config(model, check)
+    moe._route = recording
+    try:
+        handoff_check(model, MOE_HANDOFF_S - 1, 1, MOE_CONSISTENCY_REL,
+                      "moe prefill+decode vs prefill", capacity_factor=check.capacity_factor,
+                      capacity=moe._capacity(check, MOE_HANDOFF_S), tokens_dropped=0,
+                      routing_differs_in_layers=lambda: sum(
+                          a != b for a, b in zip(picks[:len(model.layers)],
+                                                 picks[-len(model.layers):])))
+    finally:
+        moe._route = route
+        _with_config(model, cfg)
+
+
+def family_paths(device, recorder=None, reduced=False) -> dict:
+    """The MoE and xLSTM serving paths with their handoff checks, then (on
+    the card) the three reduced configs against the CPU.  Returns each
+    serving path's launches."""
+    model, moe_launches = family_serve(device, MOE_ARCH, MOE_LAYERS, recorder, reduced)
+    moe_consistency(model)
+    del model
+    model, xlstm_launches = family_serve(device, XLSTM_ARCH, None, recorder, reduced)
+    prefill_len, steps = (XLSTM_PREFILL, XLSTM_STEPS) if not reduced else (48, 16)
+    handoff_check(model, prefill_len, steps, XLSTM_CONSISTENCY_REL,
+                  "xlstm prefill+decode vs prefill", steps_bound=XLSTM_STEPS_REL)
+    del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        for arch in FAMILY_REDUCED:
+            lm_reduced_card_vs_cpu(device, arch)
+    return {"moe serve": moe_launches, "ssm serve": xlstm_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1585,6 +1793,7 @@ def main() -> int:
     if args.device == "cpu":  # rehearsal of the main paths, no result
         service_path(torch.device("cpu"), main_path(torch.device("cpu"), args.events)[1])
         lm_serve(torch.device("cpu"), reduced=True)
+        family_paths(torch.device("cpu"), reduced=True)
         lm_train(torch.device("cpu"), reduced=True)
         lm_train_reduced(torch.device("cpu"))
         print("chip_smoke: CPU rehearsal only, no result", file=sys.stderr)
@@ -1621,6 +1830,7 @@ def main() -> int:
     dev = torch.device("cuda")
     recorder = Recorder()
     launches, local = main_path(dev, args.events, recorder)
+    by_path = {"main path": dict(launches)}
     service_path(dev, local)
     del local
     lm_launches = lm_serve(dev, recorder)
@@ -1629,7 +1839,11 @@ def main() -> int:
     launches.update(lm_launches)
     lm_reduced_card_vs_cpu(dev)
     torch.cuda.empty_cache()  # the 17 GB model is gone
+    by_path["lm serve"] = lm_launches
+    by_path.update(family_paths(dev, recorder))
+    torch.cuda.empty_cache()  # the MoE and xLSTM models are gone
     train_launches = lm_train(dev, recorder)
+    by_path["lm train"] = train_launches
     launches.update({k: v for k, v in train_launches.items() if k.endswith(".bwd")})
     lm_train_reduced(dev, recorder)
     torch.cuda.empty_cache()  # the 33 GB training state is gone
@@ -1652,6 +1866,8 @@ def main() -> int:
                     for tag, a, kw, tol, rec in others}
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=launches[kname],
+                         launches_by_path={p: c[kname] for p, c in by_path.items()
+                                           if c.get(kname)},
                          max_abs_err=max([row["max_abs_err"]] + [
                              h["max_abs_err"] for h in headline.values()]),
                          ms=row["ms"], plain_ms=row["plain_ms"],

@@ -54,7 +54,10 @@ def _check(what, *ts):
 
 
 def _scratch(t):
-    """The chunks' carries (one word per lane) and the block ticket."""
+    """The chunks' carries (one word per lane) and the block ticket.  The
+    caller holds it until the launch is queued: a temporary's block would
+    return to the allocator before the launch, safe only while every
+    later user of the block is on the same stream."""
     B, _, W = t.shape
     return torch.empty(B * W + 1, dtype=torch.int64, device=t.device)
 
@@ -63,10 +66,11 @@ def _scan(log_a, b):
     log_a, b = _check("rglru", log_a, b)
     B, S, W = log_a.shape
     h = torch.empty_like(log_a)
+    scratch = _scratch(log_a)
     lib = _build.load("rglru_scan", _SIGNATURES)
     with torch.cuda.device(log_a.device):
         err = lib.rglru_launch(log_a.data_ptr(), b.data_ptr(), h.data_ptr(),
-                               _scratch(log_a).data_ptr(), B, S, W, _build.stream_of(log_a))
+                               scratch.data_ptr(), B, S, W, _build.stream_of(log_a))
     _build.check(lib, err, "rglru_scan.rglru")
     LAUNCHES["rglru"] += 1
     return h
@@ -82,10 +86,11 @@ def rglru_bwd(log_a, h, dh):
     log_a, h, dh = _check("rglru_bwd", log_a, h, dh)
     B, S, W = log_a.shape
     dlog_a, db = torch.empty_like(log_a), torch.empty_like(log_a)
+    scratch = _scratch(log_a)
     lib = _build.load("rglru_scan", _SIGNATURES)
     with torch.cuda.device(log_a.device):
         err = lib.rglru_bwd_launch(log_a.data_ptr(), h.data_ptr(), dh.data_ptr(),
-                                   dlog_a.data_ptr(), db.data_ptr(), _scratch(log_a).data_ptr(),
+                                   dlog_a.data_ptr(), db.data_ptr(), scratch.data_ptr(),
                                    B, S, W, _build.stream_of(log_a))
     _build.check(lib, err, "rglru_scan.rglru_bwd")
     LAUNCHES["bwd"] += 1

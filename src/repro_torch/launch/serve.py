@@ -43,8 +43,9 @@ def serve(arch: str = "recurrentgemma-9b", batch: int = 4, prompt_len: int = 32,
     """Generate ``gen_tokens`` tokens for each of ``batch`` random prompts.
 
     ``device=None`` means the CUDA card and raises without one.
-    ``params``: an ``lm.LM`` of ``serving_config(arch, reduced)`` to run,
-    or a state dict of one (``repro_torch.carry.lm_params_from_arrays``).
+    ``params``: an ``lm.LM`` of ``serving_config(arch, reduced)``, or of
+    that config with fewer layers (a depth cut), to run; or a state dict
+    of one of the config (``repro_torch.carry.lm_params_from_arrays``).
     Returns (tokens (batch, gen_tokens) int32, stats)."""
     dev = resolve(device)
     cfg = serving_config(arch, reduced)
@@ -52,10 +53,10 @@ def serve(arch: str = "recurrentgemma-9b", batch: int = 4, prompt_len: int = 32,
     if params is None:
         model = lm.init(cfg, seed=seed, device=dev)
     elif isinstance(params, lm.LM):
-        if params.cfg != cfg:
-            raise ValueError(f"params are a model of {params.cfg.name}, not of the "
-                             f"serving config of {arch}")
-        model = params
+        if params.cfg.replace(n_layers=cfg.n_layers) != cfg:
+            raise ValueError(f"params are a model of {params.cfg.name} that differs from "
+                             f"the serving config of {arch} in more than its depth")
+        model, cfg = params, params.cfg
     else:
         model = lm.from_state_dict(cfg, params, device=dev)
 

@@ -101,6 +101,17 @@ def layer_norm(x, scale, bias, eps: float):
     return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
 
 
+def group_norm_heads(x, scale, eps: float = 1e-5):
+    """Per-head group norm over the feature dim, in float32, returned in
+    the input's type. x: (..., H, dh); scale: (H, dh)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(dt)
+
+
 class Norm(nn.Module):
     """RMSNorm (``scale`` only, applied as ``1 + scale``) or LayerNorm
     (``scale`` and ``bias``), as ``cfg.norm_kind`` says."""

@@ -11,39 +11,59 @@
 ``init`` and ``from_state_dict`` return the model in eval mode with its
 parameters frozen (serving); a trainer turns gradients on
 (``model.requires_grad_(True)``).  ``model(tokens)`` is the training
-forward: under ``cfg.remat == "full"`` each layer runs inside
-``torch.utils.checkpoint`` (its activations are recomputed in the
-backward pass), the reference's ``jax.checkpoint`` of each unit.
+forward's logits; ``model.forward_with_aux(tokens)`` also returns the
+MoE load-balancing loss summed over the layers, as the reference's
+``forward`` does (0 without an MoE layer).  ``cfg.remat`` wraps each
+layer as the reference's ``_remat_wrap`` wraps each unit: "full" runs it
+inside ``torch.utils.checkpoint`` (its activations are recomputed in the
+backward pass); "dots" does too, but keeps the outputs of the products
+with no batch dimension (``aten.mm``/``addmm``: the projections), as
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does, and
+recomputes the rest, batched products (``bmm``) included.
 
 ``model.layers`` is one ``nn.ModuleList`` in the order the reference's
 ``_run_units`` runs its layers: the remainder layers, then the units.
 Parameter names are the reference's leaf names (``embed``,
-``final_norm.scale``, ``layers.<i>.attn.wq``, ...; see
-``repro_torch.carry.lm_params_from_arrays``).  ``caches`` is a list with
-one dict per layer, ``{"attn": {...}}`` or ``{"rec": {...}}``.
+``final_norm.scale``, ``layers.<i>.attn.wq``, ``layers.<i>.ffn.w_gate``,
+``layers.<i>.mix.up``, ...; see ``repro_torch.carry.lm_params_from_arrays``).
+``caches`` is a list with one dict per layer, ``{"attn": {...}}``,
+``{"rec": {...}}`` or ``{"mix": {...}}``.
 
-The blocks this slice runs are attention and RG-LRU recurrent blocks with
-dense FFNs.  The other block kinds and options raise
-``NotImplementedError``: mLSTM / sLSTM blocks, the MoE FFN,
-encoder-decoder cross-attention and image prefixes (with learned
-positions) are ported with the other model families (ROADMAP Queue 1,
-item 9c).
+Blocks: attention (with a dense or, when ``cfg.is_moe``, an MoE FFN),
+RG-LRU recurrent blocks with dense FFNs, and the xLSTM blocks (mLSTM,
+sLSTM; no FFN).  Encoder-decoder cross-attention and image prefixes
+(with learned or sinusoidal positions) raise ``NotImplementedError``:
+they come with the next family (ROADMAP Queue 1, item 1).
 """
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
+from repro_torch.models import xlstm_blocks as xl_mod
 from repro_torch.models.common import Init, Norm, padded_vocab
 from repro_torch.models.mlp import MLP
 
-_LATER = "is ported with the other model families (ROADMAP Queue 1, item 9c)"
+_LATER = "is ported with the next model family (ROADMAP Queue 1, item 1)"
+
+# block kind -> (module, full-sequence function, decode function)
+_MIX = {"mlstm": (xl_mod.MLSTMBlock, xl_mod.mlstm_forward, xl_mod.mlstm_decode),
+        "slstm": (xl_mod.SLSTMBlock, xl_mod.slstm_forward, xl_mod.slstm_decode)}
+
+# remat="dots": keep what ``dots_with_no_batch_dims_saveable`` keeps, the
+# products with no batch dimension; recompute everything else
+_DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+_REMAT = {"full": {},
+          "dots": {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                   _DOTS_SAVED)}}
 
 
 def layer_kinds(cfg) -> List[str]:
@@ -56,24 +76,30 @@ def layer_kinds(cfg) -> List[str]:
 class Block(nn.Module):
     def __init__(self, ini: Init, cfg, kind: str):
         super().__init__()
-        if kind not in ("attn", "rec"):
-            raise NotImplementedError(f"block kind {kind!r} {_LATER}")
-        if kind == "attn" and cfg.is_moe and cfg.d_ff > 0:
-            raise NotImplementedError(f"the MoE FFN {_LATER}")
+        if kind not in ("attn", "rec", *_MIX):
+            raise ValueError(f"block kind {kind!r}")
         self.cfg, self.kind = cfg, kind
         self.norm1 = Norm(ini, cfg)
         if kind == "attn":
             self.attn = attn_mod.Attention(ini, cfg)
-        else:
+        elif kind == "rec":
             self.rec = rec_mod.RecBlock(ini, cfg)
-        if cfg.d_ff > 0:
+        else:  # the xLSTM blocks carry their own projections: no FFN
+            self.mix = _MIX[kind][0](ini, cfg)
+        self.moe = kind == "attn" and cfg.is_moe
+        if cfg.d_ff > 0 and kind in ("attn", "rec"):
             self.norm2 = Norm(ini, cfg)
-            self.ffn = MLP(ini, cfg)
+            self.ffn = moe_mod.MoE(ini, cfg) if self.moe else MLP(ini, cfg)
 
     def _ffn(self, x):
-        if self.cfg.d_ff > 0:
-            x = x + self.ffn(self.norm2(x))
-        return x
+        """(x plus the FFN's output, the MoE loss or None)."""
+        if not hasattr(self, "ffn"):
+            return x, None
+        h = self.norm2(x)
+        if self.moe:
+            y, aux = moe_mod.moe_forward(self.ffn, h, self.cfg)
+            return x + y, aux
+        return x + self.ffn(h), None
 
     def _mix(self, h, positions):
         if self.kind == "attn":
@@ -81,31 +107,42 @@ class Block(nn.Module):
         return rec_mod.rec_forward(self.rec, h)
 
     def forward(self, x, positions):
-        """Full-sequence block."""
-        return self._ffn(x + self._mix(self.norm1(x), positions))
+        """Full-sequence block: (x, the MoE loss of its FFN or None)."""
+        h = self.norm1(x)
+        if self.kind in _MIX:
+            return x + _MIX[self.kind][1](self.mix, h, self.cfg), None
+        return self._ffn(x + self._mix(h, positions))
 
     def prefill(self, x, positions, seq_len: int):
-        """Full-sequence block and the cache its decode starts from (the
-        reference's ``_block_prefill_cache``: a second pass over the
-        same normed input)."""
+        """Full-sequence block and the cache its decode starts from.  The
+        attention and recurrent caches come from a second pass over the
+        same normed input (the reference's ``_block_prefill_cache``); the
+        xLSTM blocks' from the forward pass itself (the same call on the
+        same input as the reference's second pass)."""
         h = self.norm1(x)
+        if self.kind in _MIX:
+            y, cache = _MIX[self.kind][1](self.mix, h, self.cfg, with_cache=True)
+            return x + y, {"mix": cache}
         if self.kind == "attn":
             cache = {"attn": attn_mod.prefill_cache_entries(self.attn, h, self.cfg, positions,
                                                             seq_len)}
         else:
             cache = {"rec": rec_mod.rec_prefill_cache(self.rec, h, self.cfg.conv_width)}
-        return self._ffn(x + self._mix(h, positions)), cache
+        return self._ffn(x + self._mix(h, positions))[0], cache
 
     def decode(self, x, cache: dict, pos):
         """One token per sequence; returns (x, cache)."""
         h = self.norm1(x)
+        if self.kind in _MIX:
+            y, c = _MIX[self.kind][2](self.mix, h, cache["mix"], self.cfg)
+            return x + y, {"mix": c}
         if self.kind == "attn":
             y, c = attn_mod.attention_decode(self.attn, h, cache["attn"], pos, self.cfg)
             cache = {"attn": c}
         else:
             y, c = rec_mod.rec_decode(self.rec, h, cache["rec"])
             cache = {"rec": c}
-        return self._ffn(x + y), cache
+        return self._ffn(x + y)[0], cache
 
 
 class LM(nn.Module):
@@ -132,20 +169,27 @@ class LM(nn.Module):
         w = self.embed.T if self.lm_head is None else self.lm_head
         return (self.final_norm(x) @ w.to(x.dtype)).to(torch.float32)
 
-    def forward(self, tokens):
-        """tokens (B, S) -> logits (B, S, Vp) float32."""
+    def forward_with_aux(self, tokens):
+        """tokens (B, S) -> (logits (B, S, Vp) float32, the MoE
+        load-balancing loss summed over the layers, a float32 scalar)."""
         remat = self.cfg.remat
-        if remat not in ("none", "full"):
-            raise NotImplementedError(f"remat={remat!r}: the port has 'none' and 'full' "
-                                      "(ROADMAP Queue 1, item 3)")
+        if remat not in ("none", *_REMAT):
+            raise ValueError(f"remat={remat!r}: one of 'none', 'full', 'dots'")
         x = self._embed(tokens)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
-            if remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(layer, x, positions, use_reentrant=False)
+            if remat != "none" and torch.is_grad_enabled():
+                x, a = checkpoint(layer, x, positions, use_reentrant=False, **_REMAT[remat])
             else:
-                x = layer(x, positions)
-        return self._logits(x)
+                x, a = layer(x, positions)
+            if a is not None:
+                aux = aux + a
+        return self._logits(x), aux
+
+    def forward(self, tokens):
+        """tokens (B, S) -> logits (B, S, Vp) float32."""
+        return self.forward_with_aux(tokens)[0]
 
     def prefill(self, tokens, cache_len: int = 0):
         """Full-context pass: (last-token logits (B, 1, Vp), caches).

@@ -19,15 +19,15 @@ MOE_AUX_COEF = 0.01
 
 def make_loss_fn(cfg):
     """(model, batch {'tokens', 'labels', optional 'weights'}) ->
-    (total, {"loss", "aux_loss"}), with the reference's signature.  The
-    port has no MoE block and no image prefix yet (``lm.LM`` raises for
-    both), so nothing of ``cfg`` is read: the auxiliary loss is 0 and
-    every logit is a text position's."""
+    (total, {"loss", "aux_loss"}), with the reference's signature: the
+    loss plus ``MOE_AUX_COEF`` times the MoE load-balancing loss (0
+    without an MoE layer).  The port has no image prefix yet (``lm.LM``
+    raises for one), so every logit is a text position's and nothing of
+    ``cfg`` is read."""
 
     def loss_fn(model, batch):
-        logits = model(batch["tokens"])
+        logits, aux = model.forward_with_aux(batch["tokens"])
         loss = lm.lm_loss(logits, batch["labels"], batch.get("weights"))
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         total = loss + MOE_AUX_COEF * aux
         return total, {"loss": loss, "aux_loss": aux}
 

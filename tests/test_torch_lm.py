@@ -5,7 +5,8 @@ carried over by ``lm_params_from_arrays``: forward logits, prefill logits
 and every cache entry at S = 48 > window 32 (the ring roll), 8 decode
 steps teacher-forced on the same tokens (so a near-tie cannot derail the
 run), all within atol = rtol = 1e-4 (float32, sums in another order);
-``serve`` tokens equal to the reference's ``serve`` loop; the dense
+``serve`` tokens equal to the reference's ``serve`` loop; the same for
+the MoE (reduced mixtral-8x22b, phi3.5-moe) and xLSTM families; the dense
 configs' forward through the same code; the guards."""
 import jax
 import jax.numpy as jnp
@@ -59,19 +60,25 @@ def test_forward_logits(setup):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_prefill_caches_and_decode(setup):
-    cfg, params, pcfg, model, tokens = setup
+def _cache_entries(got_tree, want_tree):
+    for path, want in jax.tree_util.tree_flatten_with_path(want_tree)[0]:
+        got = got_tree
+        for key in path:
+            got = got[key.key]
+        yield str(path), got, np.asarray(want)
+
+
+def _prefill_and_decode(cfg, params, pcfg, model, tokens):
+    """Prefill logits and every cache entry, then 8 decode steps
+    teacher-forced on ``tokens``, against the reference; returns the
+    port's cache tree after the prefill."""
     want_l, want_c = jax.jit(lambda p, b: ref_lm.prefill(p, b, cfg, SHD, cache_len=CACHE))(
         params, {"tokens": tokens[:, :S]})
     got_l, got_c = model.prefill(torch.from_numpy(tokens[:, :S]), cache_len=CACHE)
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), **TOL)
     got_tree = carry.lm_cache_to_arrays(pcfg, got_c)
-    assert got_tree["units"]["b2"]["attn"]["k"].shape[2] == 32  # window-sized ring
-    for path, want in jax.tree_util.tree_flatten_with_path(want_c)[0]:
-        got = got_tree
-        for key in path:
-            got = got[key.key]
-        np.testing.assert_allclose(got, np.asarray(want), err_msg=str(path), **TOL)
+    for path, got, want in _cache_entries(got_tree, want_c):
+        np.testing.assert_allclose(got, want, err_msg=path, **TOL)
     step = jax.jit(lambda p, c, t, pos: ref_lm.decode_step(p, c, t, pos, cfg, SHD))
     for i in range(8):
         pos = np.full((2,), S + i, np.int32)
@@ -79,6 +86,13 @@ def test_prefill_caches_and_decode(setup):
         want_l, want_c = step(params, want_c, tok, pos)
         got_l, got_c = model.decode_step(got_c, torch.from_numpy(tok), torch.from_numpy(pos))
         np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), err_msg=f"step {i}", **TOL)
+    return got_tree
+
+
+def test_prefill_caches_and_decode(setup):
+    cfg, params, pcfg, model, tokens = setup
+    got_tree = _prefill_and_decode(cfg, params, pcfg, model, tokens)
+    assert got_tree["units"]["b2"]["attn"]["k"].shape[2] == 32  # window-sized ring
 
 
 def test_decode_from_empty_caches(setup):
@@ -101,11 +115,8 @@ def test_decode_from_empty_caches(setup):
         np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), err_msg=f"step {i}", **TOL)
     got_tree = carry.lm_cache_to_arrays(pcfg, got_c)
     assert (got_tree["units"]["b2"]["attn"]["k_pos"] == -1).sum() == 2 * (32 - 3)
-    for path, want in jax.tree_util.tree_flatten_with_path(want_c)[0]:
-        got = got_tree
-        for key in path:
-            got = got[key.key]
-        np.testing.assert_allclose(got, np.asarray(want), err_msg=str(path), **TOL)
+    for path, got, want in _cache_entries(got_tree, want_c):
+        np.testing.assert_allclose(got, want, err_msg=path, **TOL)
 
 
 def test_serve_tokens_equal_the_reference():
@@ -135,8 +146,54 @@ def test_serve_without_a_card_raises(monkeypatch):
         port_serve.serve(ARCH)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "mixtral-8x22b", "whisper-small",
-                                  "phi-3-vision-4.2b"])
+MOE_XLSTM = ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "xlstm-350m"]
+
+
+@pytest.mark.parametrize("arch", MOE_XLSTM)
+def test_moe_and_xlstm_forward_prefill_and_decode(arch):
+    """The MoE and xLSTM families, reduced: mixtral (an MoE FFN of 4
+    experts, top 2, window 32 < S, so the ring roll), phi3.5-moe (full
+    causal attention, LayerNorm) and xlstm (3 mLSTM + 1 sLSTM blocks, 3
+    chunks of 16, tied embeddings, no positions): forward logits and the
+    MoE load-balancing loss, prefill logits, every cache entry (the
+    experts' layers' KV, the mLSTM {C, n, m, conv} and sLSTM {c, n, h, m}
+    states) and 8 teacher-forced decode steps."""
+    cfg, params, pcfg, model = _setup(arch)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, size=(2, S + 8)).astype(np.int32)
+    want, want_aux = jax.jit(lambda p, b: ref_lm.forward(p, b, cfg, SHD))(
+        params, {"tokens": tokens[:, :S]})
+    got, aux = model.forward_with_aux(torch.from_numpy(tokens[:, :S]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
+    assert (float(aux) > 0) == cfg.is_moe
+    _prefill_and_decode(cfg, params, pcfg, model, tokens)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "xlstm-350m"])
+def test_moe_and_xlstm_serve_tokens_equal_the_reference(arch):
+    cfg, params, pcfg, _ = _setup(arch)
+    kw = dict(batch=2, prompt_len=48, gen_tokens=6, reduced=True, seed=0)
+    want, _ = ref_serve.serve(arch, **kw)
+    got, stats = port_serve.serve(arch, **kw, device="cpu",
+                                  params=carry.lm_params_from_arrays(pcfg, params))
+    assert got.shape == (2, 6) and stats["logits_finite"]
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_serve_takes_a_depth_cut_model():
+    """``serve(params=model)`` runs a model of the serving config cut in
+    depth, and refuses one that differs in anything else."""
+    pcfg = port_serve.serving_config("phi3.5-moe-42b-a6.6b")
+    cut = lm.init(pcfg.replace(n_layers=2), seed=0, device="cpu")
+    got, stats = port_serve.serve("phi3.5-moe-42b-a6.6b", batch=1, prompt_len=8, gen_tokens=3,
+                                  device="cpu", params=cut)
+    assert got.shape == (1, 3) and stats["logits_finite"]
+    other = lm.init(pcfg.replace(n_layers=2, d_ff=64), seed=0, device="cpu")
+    with pytest.raises(ValueError, match="depth"):
+        port_serve.serve("phi3.5-moe-42b-a6.6b", device="cpu", params=other)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "phi-3-vision-4.2b"])
 def test_other_families_are_a_later_slice(arch):
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(NotImplementedError, match="item 1"):
         lm.init(port_config(arch).reduced(), device="cpu")

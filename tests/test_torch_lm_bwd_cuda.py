@@ -258,6 +258,24 @@ def test_rglru_backward_kernel(card, B, S, W):
     assert all(torch.equal(a, c) for a, c in zip(got, again))  # one fixed order
 
 
+def _rglru_grads64(log_a, b, dh):
+    """(dlog_a, db) of the recurrence step by step in float64 on the host:
+    the yardstick that says which side of a failed comparison moved."""
+    la, b, dh = (t.detach().cpu().double() for t in (log_a, b, dh))
+    a = la.exp()
+    h, hs = torch.zeros_like(b[:, 0]), []
+    for t in range(b.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    h_prev = torch.stack([torch.zeros_like(h)] + hs[:-1], dim=1)
+    g, gs = torch.zeros_like(h), []
+    for t in reversed(range(b.shape[1])):
+        g = dh[:, t] + (a[:, t + 1] * g if t + 1 < b.shape[1] else 0.0)
+        gs.append(g)
+    g = torch.stack(gs[::-1], dim=1)
+    return g * a * h_prev, g
+
+
 def test_rglru_function_gradients(card):
     log_a, b, dh = _scan_inputs(card, 2, 300, 96, seed=3)
     la, bb = log_a.clone().requires_grad_(), b.clone().requires_grad_()
@@ -267,8 +285,18 @@ def test_rglru_function_gradients(card):
     assert rg_ops.LAUNCHES == {"rglru": before["rglru"] + 1, "bwd": before["bwd"] + 1}
     la_h, b_h = (t.detach().cpu().requires_grad_() for t in (log_a, b))
     want = torch.autograd.grad(rg_ops.rglru(la_h, b_h), (la_h, b_h), dh.cpu())
-    for a, w in zip(got, want):
-        torch.testing.assert_close(a.cpu(), w, **TOL[torch.float32])
+    exact = _rglru_grads64(log_a, b, dh)
+    for name, a, w, x in zip(("dlog_a", "db"), got, want, exact):
+        a = a.cpu()
+
+        def why(msg, a=a, w=w, x=x, name=name):
+            i = tuple(int(j) for j in np.unravel_index(int((a - w).abs().argmax()), a.shape))
+            return (f"{name}, card vs CPU: {msg}\nat {i}: card {a[i].item()!r}, CPU "
+                    f"{w[i].item()!r}, float64 {x[i].item()!r}; largest distance from "
+                    f"float64: card {(a - x).abs().max().item():.3g}, CPU "
+                    f"{(w - x).abs().max().item():.3g}")
+
+        torch.testing.assert_close(a, w, msg=why, **TOL[torch.float32])
 
 
 def test_f32_single_query_any_stride(card):

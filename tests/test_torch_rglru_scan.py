@@ -24,6 +24,33 @@ def _inputs(seed, B, S, W, spread=0.5):
     return log_a, b
 
 
+def _sequential64(log_a, b):
+    """The recurrence step by step in float64: the yardstick that says
+    which side of a failed comparison moved."""
+    h, out = np.zeros(b[:, 0].shape), np.empty(b.shape)
+    for t in range(b.shape[1]):
+        h = np.exp(log_a[:, t].astype(np.float64)) * h + b[:, t]
+        out[:, t] = h
+    return out
+
+
+def _assert_close(got, want, log_a, b, what):
+    """``got`` (the port) within TOL of ``want`` (``what``); a failure
+    names the values off, the largest error, its index, both sides and
+    the float64 recurrence there, and each side's largest distance from
+    the recurrence."""
+    err = np.abs(got - want)
+    off = err > TOL["atol"] + TOL["rtol"] * np.abs(want)
+    if not off.any():
+        return
+    exact = _sequential64(log_a, b)
+    i = tuple(int(j) for j in np.unravel_index(err.argmax(), err.shape))
+    pytest.fail(f"port vs {what}: {int(off.sum())} of {err.size} values off; largest "
+                f"{err[i]:.3g} at {i}: port {got[i]!r}, {what} {want[i]!r}, float64 "
+                f"recurrence {exact[i]!r}; largest distance from the recurrence: port "
+                f"{np.abs(got - exact).max():.3g}, {what} {np.abs(want - exact).max():.3g}")
+
+
 @pytest.mark.parametrize("B,S,W,chunk", [(1, 128, 128, 32), (2, 64, 256, 16),
                                          (1, 96, 130, 32), (2, 33, 64, 16)])
 def test_rglru_matches_reference_kernel_and_scan(B, S, W, chunk):
@@ -33,9 +60,9 @@ def test_rglru_matches_reference_kernel_and_scan(B, S, W, chunk):
     assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, W)
     assert ops.LAUNCHES == launches  # the CPU path launches no kernel
     pallas = ref_ops.rglru(jnp.asarray(log_a), jnp.asarray(b), chunk=chunk, tile_w=64)
-    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref_scan(jnp.asarray(log_a),
-                                                                jnp.asarray(b))), **TOL)
+    _assert_close(got.numpy(), np.asarray(pallas), log_a, b, "Pallas kernel")
+    _assert_close(got.numpy(), np.asarray(ref_scan(jnp.asarray(log_a), jnp.asarray(b))),
+                  log_a, b, "associative scan")
 
 
 def test_rglru_matches_sequential():

@@ -1,9 +1,11 @@
 """repro_torch training vs the reference, on the CPU (autograd through the
 kernels' plain versions): ``lm_loss``; the gradient of one loss on
 reduced ``recurrentgemma-9b`` (RG-LRU scans, one KV head at stride 0,
-window 32 < S) and ``qwen3-1.7b`` (qk-norm, full causal attention), with
-the reference's weights carried over, leaf by leaf within
-1e-4 * max(1, max|g_ref|), with and without ``remat="full"``; three AdamW
+window 32 < S), ``qwen3-1.7b`` (qk-norm, full causal attention),
+``phi3.5-moe-42b-a6.6b`` (the MoE FFN and its load-balancing loss) and
+``xlstm-350m`` (mLSTM and sLSTM blocks), with the reference's weights
+carried over, leaf by leaf within 1e-4 * max(1, max|g_ref|), with and
+without ``remat="full"``; ``remat="dots"`` against both; three AdamW
 updates within 1e-6; the port's ``run`` against the reference's (12
 steps) within rtol 1e-4; ``GraphWalkLM`` over the port's TGI against the
 reference's tokens; and the guards."""
@@ -82,25 +84,33 @@ def _ref_grads(arch):
         cfg, params, pcfg, state = _setup(arch)
         batch = _batch(cfg, 1)
         loss_fn = ref_steps.make_loss_fn(cfg, SHD)
-        (total, _), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        (total, metrics), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
             params, {k: jnp.asarray(v) for k, v in batch.items()})
-        _REF_GRADS[arch] = (pcfg, state, batch, float(total),
+        _REF_GRADS[arch] = (pcfg, state, batch, float(total), float(metrics["aux_loss"]),
                             carry.lm_params_from_arrays(pcfg, jax.tree.map(np.asarray, grads)))
     return _REF_GRADS[arch]
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "qwen3-1.7b"])
-def test_gradients_match_reference(arch, remat):
-    pcfg, state, batch, want_loss, want = _ref_grads(arch)
-    pcfg = pcfg.replace(remat=remat)
+def _grads(pcfg, state, batch):
+    """The port's total loss, its metrics and every parameter's gradient."""
     model = lm.from_state_dict(pcfg, state, device="cpu").requires_grad_(True)
     total, metrics = make_loss_fn(pcfg)(model, {k: torch.from_numpy(v)
                                                 for k, v in batch.items()})
     total.backward()
+    return total, metrics, {k: p.grad for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "qwen3-1.7b", "phi3.5-moe-42b-a6.6b",
+                                  "xlstm-350m"])
+def test_gradients_match_reference(arch, remat):
+    """The total loss (the MoE load-balancing loss times MOE_AUX_COEF
+    included), the aux loss (0 without an MoE layer) and every gradient."""
+    pcfg, state, batch, want_loss, want_aux, want = _ref_grads(arch)
+    total, metrics, got = _grads(pcfg.replace(remat=remat), state, batch)
     np.testing.assert_allclose(float(total), want_loss, rtol=1e-5)
-    assert float(metrics["aux_loss"]) == 0.0
-    got = {k: p.grad for k, p in model.named_parameters()}
+    np.testing.assert_allclose(float(metrics["aux_loss"]), want_aux, rtol=1e-5)
+    assert (want_aux > 0) == pcfg.is_moe
     assert got.keys() == want.keys()
     for k, w in want.items():
         g = got[k]
@@ -165,11 +175,51 @@ def test_train_step_needs_gradients_on():
              {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
 
 
-def test_remat_dots_is_a_later_slice():
-    pcfg = port_config("qwen3-1.7b").reduced().replace(remat="dots")
-    model = lm.init(pcfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        model(torch.zeros(1, 4, dtype=torch.int64))
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "phi3.5-moe-42b-a6.6b"])
+def test_remat_dots_matches_full_and_none(arch):
+    """remat="dots" (the products with no batch dimension kept, the rest
+    recomputed) gives the losses and gradients of "full" and "none"
+    within 1e-6: the same arithmetic, only stored or recomputed."""
+    pcfg, state, batch, _, _, _ = _ref_grads(arch)
+    runs = {remat: _grads(pcfg.replace(remat=remat), state, batch)
+            for remat in ("dots", "full", "none")}
+    total, metrics, got = runs["dots"]
+    for other in ("full", "none"):
+        o_total, o_metrics, o_got = runs[other]
+        np.testing.assert_allclose(float(total), float(o_total), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(float(metrics["aux_loss"]), float(o_metrics["aux_loss"]),
+                                   rtol=1e-6, atol=1e-6)
+        for k, g in got.items():
+            np.testing.assert_allclose(g.numpy(), o_got[k].numpy(), rtol=1e-6, atol=1e-6,
+                                       err_msg=f"{k} vs remat={other}")
+
+
+def test_remat_dots_saves_only_the_unbatched_products():
+    """Under "dots" the backward reruns the batched products and the
+    elementwise work but no ``mm``: the projections' outputs are kept."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func] = self.ops.get(func, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    pcfg, state, batch, _, _, _ = _ref_grads("phi3.5-moe-42b-a6.6b")
+    counts = {}
+    for remat in ("none", "dots", "full"):
+        model = lm.from_state_dict(pcfg.replace(remat=remat), state,
+                                   device="cpu").requires_grad_(True)
+        total, _ = make_loss_fn(pcfg)(model, {k: torch.from_numpy(v) for k, v in batch.items()})
+        with Count() as c:
+            total.backward()
+        counts[remat] = c.ops
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    assert counts["dots"].get(mm, 0) == counts["none"].get(mm, 0) < counts["full"][mm]
+    assert counts["none"].get(bmm, 0) < counts["dots"][bmm] == counts["full"][bmm]
 
 
 def test_run_without_a_card_raises(monkeypatch):

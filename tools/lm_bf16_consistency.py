@@ -1,23 +1,42 @@
 """How far bf16 serving moves the last-token logits of the port's LM, and
 how far faults of the decode handoff move them: the evidence behind
-``chip_smoke.py``'s bound on prefill(S-1) + decode_step against
-prefill(S).
+``chip_smoke.py``'s bounds on prefill + decode_step against a longer
+prefill.
 
-For ``recurrentgemma-9b`` at its full depth of 38 layers but narrow
-widths (random weights from a seed, S = 96 > window 32), on the CPU with
-the plain versions, prints one JSON line per width:
+For each family the card checks, at its served depth but narrow widths
+(random weights from a seed), on the CPU with the plain versions, one
+JSON line per width:
 
-- ``bf16_vs_f32``: relative L2 of bf16 prefill(S) against the same
+- ``bf16_vs_f32``: relative L2 of the bf16 prefill against the same
   weights in f32;
-- ``consistency``: relative L2 of bf16 prefill(S-1) + decode_step
-  against bf16 prefill(S);
-- the same with a fault injected: the ring roll dropped, the conv tail
-  zeroed, the sliding window ignored.
+- ``consistency``: relative L2 of bf16 prefill(P) + decode steps against
+  bf16 prefill of the whole sequence;
+- the same with a fault planted in the handoff.
 
-    PYTHONPATH=src python tools/lm_bf16_consistency.py   # ~1 min
+Families and their handoffs (as ``chip_smoke.py`` runs them):
+
+- ``recurrentgemma``: 38 layers, S = 96 > window 32, one decode step;
+  faults: the ring roll dropped, the conv tail zeroed, the sliding window
+  ignored;
+- ``moe``: ``phi3.5-moe`` at 24 layers, 16 experts top 2, one routing
+  group (prefill(1023) + one step against prefill(1024)) with
+  capacity_factor = n_experts / top_k (no token dropped); also the
+  layers whose experts for the last token differ between the two paths
+  (``routing_flips``: bf16 rounding can reorder near-tied router
+  logits); faults: the prompt's KV entries lost, the layers' caches
+  handed to the wrong layers, the first KV entry lost, the decode
+  position one off, the decode token's MoE FFN dropped;
+- ``xlstm``: ``xlstm-350m`` at 24 layers, prefill(4096) + 256 steps,
+  each step against the forward's logits at its position (the first
+  step, the largest and the last); faults: the mLSTM stabilizer ``m``
+  zeroed, the conv tail dropped, the sLSTM ``h`` reset.
+
+    PYTHONPATH=src python tools/lm_bf16_consistency.py [--family NAME] [--width W]
+    # recurrentgemma ~1 min, moe ~3 min, xlstm ~4 min
 """
 from __future__ import annotations
 
+import argparse
 import json
 from unittest import mock
 
@@ -25,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import attention, lm, recurrent
+from repro_torch.models import attention, lm, moe, recurrent
 
 S = 96
 
@@ -34,13 +53,25 @@ def _rel(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
-def consistency(model, tokens) -> float:
+def handoff(model, tokens, prefill_len: int, pos_shift: int = 0, mutate=None) -> float:
+    """bf16 prefill(prefill_len) + teacher-forced decode steps against
+    prefill of all of ``tokens``: relative L2 of the last logits.
+    ``mutate`` plants a fault in the caches the decode starts from."""
+    n = tokens.shape[1]
     with torch.inference_mode():
-        full, _ = model.prefill(tokens, cache_len=S + 8)
-        _, caches = model.prefill(tokens[:, :-1], cache_len=S + 8)
-        step, _ = model.decode_step(caches, tokens[:, -1:],
-                                    torch.tensor([S - 1], dtype=torch.int32))
+        full, _ = model.prefill(tokens, cache_len=n + 8)
+        _, caches = model.prefill(tokens[:, :prefill_len], cache_len=n + 8)
+        if mutate is not None:
+            caches = mutate(caches)
+        for t in range(prefill_len, n):
+            step, caches = model.decode_step(caches, tokens[:, t:t + 1],
+                                             torch.tensor([t + pos_shift], dtype=torch.int32))
     return _rel(step[0, -1], full[0, -1])
+
+
+def consistency(model, tokens) -> float:
+    """prefill(S-1) + one decode step against prefill(S)."""
+    return handoff(model, tokens, tokens.shape[1] - 1)
 
 
 _REC_PREFILL_CACHE = recurrent.rec_prefill_cache
@@ -52,30 +83,179 @@ def _conv_lost(p, x, conv_width):
     return cache
 
 
+def _models(cfg):
+    """The bf16 model and the same weights in f32."""
+    model = lm.init(cfg, seed=0, device="cpu")
+    f32 = cfg.replace(dtype="float32", param_dtype="float32")
+    ref = lm.from_state_dict(f32, {k: v.float() for k, v in model.state_dict().items()},
+                             device="cpu")
+    return model, ref
+
+
+def _tokens(cfg, n):
+    return torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, size=(1, n)).astype(np.int32))
+
+
+def _drift(model, ref, tokens) -> float:
+    with torch.inference_mode():
+        bf, _ = model.prefill(tokens, cache_len=tokens.shape[1] + 8)
+        fp, _ = ref.prefill(tokens, cache_len=tokens.shape[1] + 8)
+    return _rel(bf[0, -1], fp[0, -1])
+
+
+def recurrentgemma(width, head_dim):
+    cfg = get_config("recurrentgemma-9b").reduced().replace(
+        n_layers=38, d_model=width, rnn_width=width, d_ff=3 * width, head_dim=head_dim,
+        dtype="bfloat16", param_dtype="bfloat16")
+    model, ref = _models(cfg)
+    tokens = _tokens(cfg, S)
+    row = dict(family="recurrentgemma", width=width, layers=cfg.n_layers, S=S,
+               window=cfg.window, bf16_vs_f32=_drift(model, ref, tokens),
+               consistency=consistency(model, tokens))
+    with mock.patch.object(attention.torch, "roll", lambda t, shift, dims=0: t):
+        row["ring_roll_dropped"] = consistency(model, tokens)
+    with mock.patch.object(recurrent, "rec_prefill_cache", _conv_lost):
+        row["conv_tail_lost"] = consistency(model, tokens)
+    with mock.patch.object(attention, "_window", lambda cfg: 0):
+        row["window_ignored"] = consistency(model, tokens)
+    return row
+
+
+_PREFILL_CACHE_ENTRIES = attention.prefill_cache_entries
+_MOE_FORWARD = moe.moe_forward
+
+
+def _first_kv_lost(*a, **k):
+    cache = _PREFILL_CACHE_ENTRIES(*a, **k)
+    cache["k_pos"][:, 0] = -1
+    return cache
+
+
+def _decode_ffn_dropped(p, x, cfg, impl=None):
+    y, aux = _MOE_FORWARD(p, x, cfg, impl)
+    return (torch.zeros_like(y) if x.shape[1] == 1 else y), aux
+
+
+def _prompt_kv_lost(caches):
+    for c in caches:
+        c["attn"]["k_pos"].fill_(-1)
+    return caches
+
+
+def _layer_caches_rotated(caches):
+    return caches[1:] + caches[:1]
+
+
+def routing_flips(model, tokens) -> int:
+    """Layers whose experts for the last token differ between prefill of
+    all of ``tokens`` and prefill of all but it + one decode step."""
+    picks = []
+    route = moe._route
+
+    def recording(p, x2d, cfg):
+        out = route(p, x2d, cfg)
+        picks.append(set(out[1][-1].tolist()))
+        return out
+
+    n = tokens.shape[1]
+    with mock.patch.object(moe, "_route", recording), torch.inference_mode():
+        model.prefill(tokens, cache_len=n + 8)
+        full = picks[:]
+        picks.clear()
+        _, caches = model.prefill(tokens[:, :-1], cache_len=n + 8)
+        picks.clear()
+        model.decode_step(caches, tokens[:, -1:], torch.tensor([n - 1], dtype=torch.int32))
+    return sum(a != b for a, b in zip(full, picks))
+
+
+def moe_family(width, head_dim):
+    base = get_config("phi3.5-moe-42b-a6.6b")
+    heads = width // head_dim
+    cfg = base.reduced().replace(
+        n_layers=24, d_model=width, head_dim=head_dim, n_heads=heads,
+        n_kv_heads=max(1, heads // 4), d_ff=2 * width, n_experts=base.n_experts,
+        top_k=base.top_k, capacity_factor=base.n_experts / base.top_k,
+        dtype="bfloat16", param_dtype="bfloat16")
+    model, ref = _models(cfg)
+    n = moe.GROUP
+    tokens = _tokens(cfg, n)
+    row = dict(family="moe", width=width, layers=cfg.n_layers, experts=cfg.n_experts,
+               S=n, bf16_vs_f32=_drift(model, ref, tokens),
+               consistency=handoff(model, tokens, n - 1),
+               routing_flips=routing_flips(model, tokens))
+    row["prompt_kv_lost"] = handoff(model, tokens, n - 1, mutate=_prompt_kv_lost)
+    row["layer_caches_rotated"] = handoff(model, tokens, n - 1, mutate=_layer_caches_rotated)
+    with mock.patch.object(attention, "prefill_cache_entries", _first_kv_lost):
+        row["first_kv_entry_lost"] = handoff(model, tokens, n - 1)
+    row["decode_position_one_off"] = handoff(model, tokens, n - 1, pos_shift=1)
+    with mock.patch.object(moe, "moe_forward", _decode_ffn_dropped):
+        row["decode_moe_ffn_dropped"] = handoff(model, tokens, n - 1)
+    return row
+
+
+def _mix_fault(kind, key):
+    """lm's full-sequence function for ``kind`` with ``key`` of the cache
+    it returns zeroed."""
+    module, forward, decode = lm._MIX[kind]
+
+    def faulty(p, x, cfg, with_cache=False):
+        out = forward(p, x, cfg, with_cache)
+        if with_cache:
+            out[1][key] = torch.zeros_like(out[1][key])
+        return out
+
+    return {kind: (module, faulty, decode)}
+
+
+def handoff_steps(model, tokens, prefill_len: int) -> dict:
+    """bf16 prefill(prefill_len), then teacher-forced decode steps, each
+    step's logits against the bf16 forward's logits at its position:
+    relative L2 at the first step (the handoff), the largest, and the
+    last."""
+    n = tokens.shape[1]
+    with torch.inference_mode():
+        full = model(tokens)[0]
+        _, caches = model.prefill(tokens[:, :prefill_len], cache_len=n + 8)
+        rels = []
+        for t in range(prefill_len, n):
+            step, caches = model.decode_step(caches, tokens[:, t:t + 1],
+                                             torch.tensor([t], dtype=torch.int32))
+            rels.append(_rel(step[0, -1], full[t]))
+    return dict(first=rels[0], max=max(rels), last=rels[-1])
+
+
+def xlstm_family(width, _head_dim, prefill_len=4096, steps=256):
+    cfg = get_config("xlstm-350m").reduced().replace(
+        n_layers=24, d_model=width, mlstm_chunk=256, dtype="bfloat16", param_dtype="bfloat16")
+    model, ref = _models(cfg)
+    tokens = _tokens(cfg, prefill_len + steps)
+    row = dict(family="xlstm", width=width, layers=cfg.n_layers, S=prefill_len + steps,
+               prefill_len=prefill_len, decode_steps=steps,
+               bf16_vs_f32=_drift(model, ref, tokens),
+               consistency=handoff_steps(model, tokens, prefill_len))
+    for name, kind, key in (("mlstm_m_zeroed", "mlstm", "m"),
+                            ("mlstm_conv_tail_dropped", "mlstm", "conv"),
+                            ("slstm_h_reset", "slstm", "h")):
+        with mock.patch.dict(lm._MIX, _mix_fault(kind, key)):
+            row[name] = handoff_steps(model, tokens, prefill_len)
+    return row
+
+
+WIDTHS = {64: 16, 256: 64}  # width: head dim
+FAMILIES = {"recurrentgemma": recurrentgemma, "moe": moe_family, "xlstm": xlstm_family}
+
+
 def main() -> None:
-    for width, head_dim in ((64, 16), (256, 64)):
-        cfg = get_config("recurrentgemma-9b").reduced().replace(
-            n_layers=38, d_model=width, rnn_width=width, d_ff=3 * width, head_dim=head_dim,
-            dtype="bfloat16", param_dtype="bfloat16")
-        model = lm.init(cfg, seed=0, device="cpu")
-        f32 = cfg.replace(dtype="float32", param_dtype="float32")
-        ref = lm.from_state_dict(f32, {k: v.float() for k, v in model.state_dict().items()},
-                                 device="cpu")
-        tokens = torch.from_numpy(np.random.RandomState(1).randint(
-            0, cfg.vocab_size, size=(1, S)).astype(np.int32))
-        with torch.inference_mode():
-            bf, _ = model.prefill(tokens, cache_len=S + 8)
-            fp, _ = ref.prefill(tokens, cache_len=S + 8)
-        row = dict(width=width, layers=cfg.n_layers, S=S, window=cfg.window,
-                   bf16_vs_f32=_rel(bf[0, -1], fp[0, -1]),
-                   consistency=consistency(model, tokens))
-        with mock.patch.object(attention.torch, "roll", lambda t, shift, dims=0: t):
-            row["ring_roll_dropped"] = consistency(model, tokens)
-        with mock.patch.object(recurrent, "rec_prefill_cache", _conv_lost):
-            row["conv_tail_lost"] = consistency(model, tokens)
-        with mock.patch.object(attention, "_window", lambda cfg: 0):
-            row["window_ignored"] = consistency(model, tokens)
-        print(json.dumps(row), flush=True)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--family", choices=[*FAMILIES, "all"], default="all")
+    ap.add_argument("--width", type=int, choices=sorted(WIDTHS), action="append",
+                    help="default: both")
+    args = ap.parse_args()
+    for name, fn in FAMILIES.items():
+        if args.family in (name, "all"):
+            for width in args.width or sorted(WIDTHS):
+                print(json.dumps(fn(width, WIDTHS[width])), flush=True)
 
 
 if __name__ == "__main__":
