@@ -8,8 +8,9 @@ other: pass ``{name: getattr(obj, name)}`` over the reference object's
 fields.
 
 The LM's parameters and caches travel as nested dicts of numpy arrays in
-the reference's tree layout (``{"embed", "final_norm", "rem": {"b<i>"},
-"units": {"b<i>": leaves stacked over units}}``).
+the reference's tree layout (``{"embed", "final_norm", ["pos"],
+"rem": {"b<i>"}, "units": {"b<i>": leaves stacked over units},
+["enc_units": {"b0": leaves stacked over encoder layers}, "enc_norm"]}``).
 """
 from __future__ import annotations
 
@@ -58,10 +59,17 @@ def _flat(tree, prefix: str = ""):
 def lm_params_from_arrays(cfg, tree: Dict) -> Dict[str, torch.Tensor]:
     """The port's LM state dict from the reference's parameter tree (as
     numpy, e.g. ``split_tree(lm.init(...))[0]``): ``rem/b<i>/...`` is
-    layer i, ``units/b<i>/...[u]`` layer ``n_rem + u * unit_len + i``."""
+    layer i, ``units/b<i>/...[u]`` layer ``n_rem + u * unit_len + i``
+    (``norm_x``, ``xattn`` included), ``enc_units/b0/...[u]`` encoder
+    layer u; ``pos`` and ``enc_norm`` keep their names."""
     state = {}
-    for name, value in _flat({k: v for k, v in tree.items() if k not in ("rem", "units")}):
+    stacks = ("rem", "units", "enc_units")
+    for name, value in _flat({k: v for k, v in tree.items() if k not in stacks}):
         state[name] = torch.from_numpy(np.array(value))
+    for name, value in _flat(tree.get("enc_units") or {}):
+        rest = name.split(".", 1)[1]
+        for u in range(cfg.n_enc_layers):
+            state[f"enc_layers.{u}.{rest}"] = torch.from_numpy(np.array(value[u]))
     for name, value in _flat(tree.get("rem") or {}):
         b, rest = name.split(".", 1)
         state[f"layers.{int(b[1:])}.{rest}"] = torch.from_numpy(np.array(value))
@@ -75,7 +83,8 @@ def lm_params_from_arrays(cfg, tree: Dict) -> Dict[str, torch.Tensor]:
 
 def lm_cache_to_arrays(cfg, caches: List[Dict]) -> Dict:
     """The reference's ``{"rem", "units"}`` cache tree (numpy) from the
-    port's per-layer caches, unit leaves stacked over units."""
+    port's per-layer caches, unit leaves stacked over units (a
+    cross-attention layer's ``ck``/``cv`` with its ``k``/``v``)."""
 
     def host(c):
         return {k: host(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in c.items()}

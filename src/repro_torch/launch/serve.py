@@ -3,8 +3,20 @@ batch of prompts, then decode greedily one token at a time.
 
 Serving precision is the config's activation type (bfloat16 at full
 width; the reduced configs are float32).  Weights are random, drawn on
-the device from ``seed``, unless ``params`` carries them.  Prompts come
-from ``np.random.RandomState(seed)``, as in the reference.
+the device from ``seed``, unless ``params`` carries them.  The inputs
+come from ``np.random.RandomState(seed)`` in the reference's order: the
+prompts, then (encoder-decoder) the audio frames as ``randn * 0.02``; a
+VLM's image embeddings are zeros (the reference's stub frontend).
+
+The KV cache holds ``n_img_tokens + prompt_len + gen_tokens + 8`` slots:
+the image prefix, the prompt and the generated tokens all stay in it.
+The reference sizes it without the image prefix
+(``repro/launch/serve.py:30,41``: ``prompt_len + gen_tokens + 8``), so
+once the prefix is longer than ``gen_tokens + 8`` (576 image tokens at
+full width) its prefill allocates exactly the sequence's slots and
+every decode step overwrites ring slot ``pos % S``: image token 0, 1,
+2, ... drop out of attention, one a generated token.  The learned
+position table has the reference's ``prompt_len + gen_tokens + 8`` rows.
 
   python -m repro_torch.launch.serve --arch recurrentgemma-9b --full
   python -m repro_torch.launch.serve --device cpu        # reduced config
@@ -40,7 +52,9 @@ def _sync(dev: torch.device) -> None:
 def serve(arch: str = "recurrentgemma-9b", batch: int = 4, prompt_len: int = 32,
           gen_tokens: int = 16, reduced: bool = True, seed: int = 0,
           device: DeviceLike = None, params=None):
-    """Generate ``gen_tokens`` tokens for each of ``batch`` random prompts.
+    """Generate ``gen_tokens`` tokens for each of ``batch`` random prompts
+    (after the image prefix of a VLM, over the audio frames of an
+    encoder-decoder).
 
     ``device=None`` means the CUDA card and raises without one.
     ``params``: an ``lm.LM`` of ``serving_config(arch, reduced)``, or of
@@ -50,8 +64,9 @@ def serve(arch: str = "recurrentgemma-9b", batch: int = 4, prompt_len: int = 32,
     dev = resolve(device)
     cfg = serving_config(arch, reduced)
     max_seq = prompt_len + gen_tokens + 8
+    cache_len = cfg.n_img_tokens + max_seq
     if params is None:
-        model = lm.init(cfg, seed=seed, device=dev)
+        model = lm.init(cfg, seed=seed, device=dev, max_seq=max_seq)
     elif isinstance(params, lm.LM):
         if params.cfg.replace(n_layers=cfg.n_layers) != cfg:
             raise ValueError(f"params are a model of {params.cfg.name} that differs from "
@@ -61,20 +76,26 @@ def serve(arch: str = "recurrentgemma-9b", batch: int = 4, prompt_len: int = 32,
         model = lm.from_state_dict(cfg, params, device=dev)
 
     rng = np.random.RandomState(seed)
-    prompts = rng.randint(0, cfg.vocab_size, size=(batch, prompt_len)).astype(np.int32)
-    prefill = make_prefill_step(cache_len=max_seq)
+    inputs = {"tokens": rng.randint(0, cfg.vocab_size, size=(batch, prompt_len))
+              .astype(np.int32)}
+    if cfg.n_img_tokens:
+        inputs["img_embeds"] = np.zeros((batch, cfg.n_img_tokens, cfg.d_model), np.float32)
+    if cfg.is_encdec:
+        inputs["frames"] = rng.randn(batch, cfg.enc_seq, cfg.d_model).astype(np.float32) * 0.02
+    prefill = make_prefill_step(cache_len=cache_len)
     step = make_serve_step()
+    pos0 = cfg.n_img_tokens + prompt_len
 
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
-        tok, caches = prefill(model, {"tokens": torch.from_numpy(prompts).to(dev)})
+        tok, caches = prefill(model, {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()})
         out = [tok.cpu().numpy()]
         t_prefill = time.perf_counter() - t0
         finite = True
         t0 = time.perf_counter()
         for i in range(gen_tokens - 1):
-            pos = torch.full((batch,), prompt_len + i, dtype=torch.int32, device=dev)
+            pos = torch.full((batch,), pos0 + i, dtype=torch.int32, device=dev)
             tok, logits, caches = step(model, caches, tok[:, None], pos)
             finite &= bool(torch.isfinite(logits).all())
             out.append(tok.cpu().numpy())
@@ -82,7 +103,7 @@ def serve(arch: str = "recurrentgemma-9b", batch: int = 4, prompt_len: int = 32,
     return np.stack(out, 1), {
         "prefill_s": t_prefill, "decode_s": t_decode,
         "tok_per_s": batch * (gen_tokens - 1) / max(t_decode, 1e-9),
-        "logits_finite": finite}
+        "logits_finite": finite, "cache_len": cache_len}
 
 
 def main():

@@ -5,7 +5,9 @@ async saves, restore on start).
 Weights are random, drawn on the device from ``seed``, unless ``params``
 carries them (the reference draws its own with ``jax.random``, so a test
 carries those over with ``repro_torch.carry.lm_params_from_arrays``).
-Batches are ``SyntheticLM(seed)``'s, the same tokens as the reference's.
+Batches are ``SyntheticLM(seed)``'s, the same tokens as the reference's,
+with the reference's stub inputs: a VLM's image embeddings as zeros, an
+encoder-decoder's frames from ``np.random.RandomState(step)``.
 ``device=None`` means the CUDA card and raises without one; there the
 attention and RG-LRU layers train through their backward kernels.
 
@@ -18,6 +20,7 @@ import argparse
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
@@ -30,12 +33,13 @@ from repro_torch.storage.kvstore import DeltaStore
 from repro_torch.train import make_train_step
 
 
-def _model(cfg, params, seed: int, dev: torch.device) -> lm.LM:
-    """The model to train: random from ``seed``, ``params`` itself (an
-    ``lm.LM`` of ``cfg`` or of ``cfg`` with fewer layers, a depth cut), or
-    ``cfg``'s model loaded from the state dict ``params``."""
+def _model(cfg, params, seed: int, dev: torch.device, max_seq: int) -> lm.LM:
+    """The model to train: random from ``seed`` (``max_seq`` rows of
+    learned positions), ``params`` itself (an ``lm.LM`` of ``cfg`` or of
+    ``cfg`` with fewer layers, a depth cut), or ``cfg``'s model loaded
+    from the state dict ``params``."""
     if params is None:
-        return lm.init(cfg, seed=seed, device=dev)
+        return lm.init(cfg, seed=seed, device=dev, max_seq=max_seq)
     if isinstance(params, lm.LM):
         if params.cfg.replace(n_layers=cfg.n_layers) != cfg:
             raise ValueError(f"params are a model of {params.cfg.name} that differs from the "
@@ -57,7 +61,7 @@ def run(arch: str = "qwen3-1.7b", steps: int = 30, batch: int = 8, seq: int = 64
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    model = _model(cfg, params, seed, dev)
+    model = _model(cfg, params, seed, dev, max_seq=4 * seq)
     cfg = model.cfg
     model.train()
     model.requires_grad_(True)
@@ -81,7 +85,14 @@ def run(arch: str = "qwen3-1.7b", steps: int = 30, batch: int = 8, seq: int = 64
     pending = None
     end = min(steps, stop_after) if stop_after is not None else steps
     for step in range(start_step, end):
-        batch_t = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(step).items()}
+        batch_np = pipe.batch(step)
+        if cfg.n_img_tokens:
+            batch_np["img_embeds"] = np.zeros((batch, cfg.n_img_tokens, cfg.d_model), np.float32)
+        if cfg.is_encdec:
+            batch_np["frames"] = (np.random.RandomState(step).randn(batch, cfg.enc_seq,
+                                                                    cfg.d_model)
+                                  .astype(np.float32) * 0.02)
+        batch_t = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
         t0 = time.perf_counter()
         model, opt_state, metrics = step_fn(model, opt_state, batch_t)
         loss = float(metrics["loss"])  # waits for the step

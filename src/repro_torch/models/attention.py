@@ -4,10 +4,15 @@
 The full-sequence path (prefill, forward) runs the ``flash_attention``
 kernel (``repro_torch.kernels.flash_attention``, the kernel the
 reference wrote for the TPU but never calls from its model; its own test
-holds it equal to ``blockwise_attention`` and ``direct_attention``).
+holds it equal to ``blockwise_attention`` and ``direct_attention``):
+causal self-attention in a decoder, non-causal in an encoder, and
+cross-attention (``kv_x``: queries from the decoder, keys and values
+from the encoder's output, Sq != Sk, no rope, no causal mask).
 The projections stay in (B, S, H, hd); the kernel reads them through a
 (B, H, S, hd) view, and MQA's one KV head through a stride-0 head axis,
-so neither needs a copy.  ``blockwise_attention`` and
+so neither needs a copy.  A cross-attention layer's keys and values are
+computed once, at prefill (``cross_cache_entries``: the cache's ``ck``
+and ``cv``), and decode attends them all.  ``blockwise_attention`` and
 ``direct_attention`` are kept as plain functions of tensors.  Decode
 keeps a per-sequence ``k_pos`` (B, Sc), which is not the kernel's shared
 positions, and runs in plain torch, as the reference computes it outside
@@ -38,7 +43,11 @@ NEG = -0.7 * torch.finfo(torch.float32).max
 
 
 class Attention(nn.Module):
-    def __init__(self, ini: Init, cfg):
+    """wq, wk, wv, wo (and biases); q_norm / k_norm under ``cfg.qk_norm``
+    except in a cross-attention layer (``cross``), as the reference's
+    ``init_attention``."""
+
+    def __init__(self, ini: Init, cfg, cross: bool = False):
         super().__init__()
         D, hd = cfg.d_model, cfg.resolved_head_dim
         H, KV = cfg.n_heads_p, cfg.n_kv_p  # padded (== raw when padding is off)
@@ -56,7 +65,7 @@ class Attention(nn.Module):
             self.bv = ini.zeros((KV, hd))
             self.bo = ini.zeros((D,))
         self.q_norm = self.k_norm = None
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.q_norm = ini.zeros((hd,))
             self.k_norm = ini.zeros((hd,))
 
@@ -73,25 +82,32 @@ def _out_proj(p: Attention, out):
     return y if p.bo is None else y + p.bo.to(out.dtype)
 
 
-def _project_kv(p: Attention, x, cfg, positions):
-    """k, v (B, S, KV, hd) with k-norm and rope applied."""
+def _project_q(p: Attention, x, cfg, positions, use_rope: bool):
+    """q (B, S, H, hd) with q-norm and (``use_rope``) rope applied."""
+    q = _proj(x, p.wq, p.bq)
+    if p.q_norm is not None:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+    if use_rope:
+        q = apply_rope(q, *rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta))
+    return q
+
+
+def _project_kv(p: Attention, x, cfg, positions, use_rope: bool):
+    """k, v (B, S, KV, hd) with k-norm and (``use_rope``) rope applied."""
     k, v = _proj(x, p.wk, p.bk), _proj(x, p.wv, p.bv)
     if p.k_norm is not None:
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    if cfg.pos_kind == "rope":
+    if use_rope:
         k = apply_rope(k, *rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta))
     return k, v
 
 
-def _project_qkv(p: Attention, x, cfg, positions):
-    """Returns q (B, S, H, hd), k/v (B, S, KV, hd): rope and norm applied."""
-    q = _proj(x, p.wq, p.bq)
-    if p.q_norm is not None:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-    if cfg.pos_kind == "rope":
-        q = apply_rope(q, *rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta))
-    k, v = _project_kv(p, x, cfg, positions)
-    return q, k, v
+def _repeat_virtual(k, v, cfg, model_axis: int = 1):
+    """k, v repeated from the KV heads to the cache's virtual KV heads."""
+    rep = n_kv_virtual(cfg.n_heads_p, cfg.n_kv_p, model_axis) // cfg.n_kv_p
+    if rep > 1:
+        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    return k, v
 
 
 def _expand_kv(k, v, n_heads: int):
@@ -169,16 +185,25 @@ def direct_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
 # ---------------------------------------------------------------------------
 
 
-def attention_forward(p: Attention, x, cfg, positions):
-    """Full-sequence causal self-attention sub-layer through the
-    flash-attention kernel (pre-norm residual handled by the caller)."""
+def attention_forward(p: Attention, x, cfg, positions, *, causal: bool = True, kv_x=None):
+    """Full-sequence attention sub-layer through the flash-attention
+    kernel (pre-norm residual handled by the caller).  ``kv_x`` given
+    means cross-attention: keys and values projected from ``kv_x`` at
+    positions ``arange(kv_x.shape[1])``, no rope, no causal mask."""
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError("the flash_attention kernel has no logit soft cap; "
                                   "no configuration of the port's path uses one")
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    k, v = _expand_kv(k, v, cfg.n_heads_p)
+    cross = kv_x is not None
+    if cross:
+        kv_positions = torch.arange(kv_x.shape[1], dtype=torch.int32, device=kv_x.device)
+    else:
+        kv_x, kv_positions = x, positions
+    use_rope = cfg.pos_kind == "rope" and not cross
+    q = _project_q(p, x, cfg, positions, use_rope)
+    k, v = _expand_kv(*_project_kv(p, kv_x, cfg, kv_positions, use_rope), cfg.n_heads_p)
     out = fa_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                 positions, positions, causal=True, window=_window(cfg))
+                                 positions, kv_positions, causal=causal and not cross,
+                                 window=_window(cfg))
     return _out_proj(p, out.transpose(1, 2))
 
 
@@ -222,17 +247,21 @@ def _decode_mha(q, k, v, k_pos, pos, window: int, logit_cap: float):
     return out.to(q.dtype)
 
 
-def attention_decode(p: Attention, x, cache: dict, pos, cfg):
+def attention_decode(p: Attention, x, cache: dict, pos, cfg, cross: bool = False):
     """x: (B, 1, D) current token activations; pos: (B,) int positions.
-    Writes the token's k/v into its ring slot (in place) and returns
-    (y (B, 1, D), cache)."""
+    Self-attention writes the token's k/v into its ring slot (in place);
+    ``cross`` attends every entry of the cache's ``ck``/``cv`` and leaves
+    the cache as it is.  Returns (y (B, 1, D), cache)."""
     dt = x.dtype
-    q = _proj(x, p.wq, p.bq)
-    if p.q_norm is not None:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-    if cfg.pos_kind == "rope":
-        q = apply_rope(q, *rope_tables(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta))
-    k, v = _project_kv(p, x, cfg, pos[:, None])
+    use_rope = cfg.pos_kind == "rope" and not cross
+    q = _project_q(p, x, cfg, pos[:, None], use_rope)
+    if cross:
+        ck = cache["ck"]
+        every = torch.zeros(ck.shape[:2], dtype=torch.int32, device=x.device)
+        late = torch.full((x.shape[0],), 2 ** 30, dtype=torch.int32, device=x.device)
+        out = _decode_mha(q, ck, cache["cv"], every, late, 0, cfg.attn_logit_softcap)
+        return _out_proj(p, out.to(dt)), cache
+    k, v = _project_kv(p, x, cfg, pos[:, None], use_rope)
     kvv = cache["k"].shape[2]
     rep = kvv // cfg.n_kv_p
     if rep > 1:
@@ -253,10 +282,8 @@ def prefill_cache_entries(p: Attention, x, cfg, positions, seq_len: int,
     """The k/v cache contents of a full-sequence pass (prefill): the last
     `cache_len` entries, in ring layout."""
     dt = getattr(torch, cfg.dtype)
-    k, v = _project_kv(p, x, cfg, positions)
-    rep = n_kv_virtual(cfg.n_heads_p, cfg.n_kv_p, model_axis) // cfg.n_kv_p
-    if rep > 1:
-        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    k, v = _repeat_virtual(*_project_kv(p, x, cfg, positions, cfg.pos_kind == "rope"), cfg,
+                           model_axis)
     sc = cache_len(cfg, seq_len)
     B, S = x.shape[0], x.shape[1]
     if sc < S:
@@ -273,3 +300,12 @@ def prefill_cache_entries(p: Attention, x, cfg, positions, seq_len: int,
     vv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     kpos = torch.nn.functional.pad(positions.to(torch.int32), (0, pad), value=-1)
     return {"k": kk.to(dt), "v": vv.to(dt), "k_pos": kpos[None].expand(B, sc).contiguous()}
+
+
+def cross_cache_entries(p: Attention, enc_out, cfg) -> dict:
+    """A cross-attention layer's decode cache: the encoder output's keys
+    and values (no rope), repeated to the virtual KV heads and cast to
+    ``cfg.dtype``: ``{"ck", "cv"}``, each (B, S_enc, KVv, hd)."""
+    dt = getattr(torch, cfg.dtype)
+    ck, cv = _repeat_virtual(*_project_kv(p, enc_out, cfg, None, False), cfg)
+    return {"ck": ck.to(dt), "cv": cv.to(dt)}

@@ -1,5 +1,7 @@
 """Common model building blocks (port of ``repro.models.common``): the
-parameter factory, norms, rotary embeddings, vocabulary padding.
+parameter factory, norms, rotary and sinusoidal positions, vocabulary
+padding.  The reference's ``init_norm`` and
+``apply_norm`` are ``Norm`` (its parameters and its ``forward``).
 
 ``Init`` draws every parameter from one explicit ``torch.Generator`` on
 the target device, in float32, then casts to ``param_dtype`` (as the
@@ -14,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -161,6 +164,16 @@ def apply_rope(x, sin, cos):
     x1f, x2f = x1.to(torch.float32), x2.to(torch.float32)
     out = torch.cat([x1f * c - x2f * s, x2f * c + x1f * s], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n_pos: int, dim: int) -> np.ndarray:
+    """Whisper-style sinusoidal table (n_pos, dim), float32, computed on
+    the host: sines of the first half, cosines of the second."""
+    half = dim // 2
+    log_timescale = np.log(10_000.0) / max(half - 1, 1)
+    inv = np.exp(-log_timescale * np.arange(half))
+    ang = np.arange(n_pos)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=1).astype(np.float32)
 
 
 def padded_vocab(vocab_size: int, multiple: int = 128) -> int:

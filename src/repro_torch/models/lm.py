@@ -1,11 +1,11 @@
-"""Decoder-only language model (port of ``repro.models.lm``) as
-``nn.Module``s:
+"""Language models (port of ``repro.models.lm``) as ``nn.Module``s:
+decoder-only, encoder-decoder (whisper) and image-prefix (VLM).
 
-    model = init(cfg, seed, device)                 # random weights from a seed
+    model = init(cfg, seed, device, max_seq)       # random weights from a seed
     model = from_state_dict(cfg, state, device)     # carried weights
-    logits = model(tokens)                          # (B, S, Vp) float32
+    logits = model(tokens, img_embeds=, frames=)    # (B, S, Vp) float32
     loss = lm_loss(logits, labels)                  # the training loss
-    logits, caches = model.prefill(tokens, cache_len)
+    logits, caches = model.prefill(tokens, cache_len, img_embeds=, frames=)
     logits, caches = model.decode_step(caches, tokens, pos)
 
 ``init`` and ``from_state_dict`` return the model in eval mode with its
@@ -14,26 +14,40 @@ parameters frozen (serving); a trainer turns gradients on
 forward's logits; ``model.forward_with_aux(tokens)`` also returns the
 MoE load-balancing loss summed over the layers, as the reference's
 ``forward`` does (0 without an MoE layer).  ``cfg.remat`` wraps each
-layer as the reference's ``_remat_wrap`` wraps each unit: "full" runs it
-inside ``torch.utils.checkpoint`` (its activations are recomputed in the
-backward pass); "dots" does too, but keeps the outputs of the products
-with no batch dimension (``aten.mm``/``addmm``: the projections), as
-``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does, and
-recomputes the rest, batched products (``bmm``) included.
+layer (the encoder's too) as the reference's ``_remat_wrap`` wraps each
+unit: "full" runs it inside ``torch.utils.checkpoint`` (its activations
+are recomputed in the backward pass); "dots" does too, but keeps the
+outputs of the products with no batch dimension (``aten.mm``/``addmm``:
+the projections), as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+does, and recomputes the rest, batched products (``bmm``) included.
+
+Inputs, as the reference's ``_assemble_inputs`` builds them: a VLM
+config (``cfg.n_img_tokens``) takes ``img_embeds`` (B, n_img, D), cast
+to the activation type and put before the token embeddings, so
+positions (and rope) run over the image prefix and decode positions
+start after it; ``pos_kind="learned"`` adds ``pos[:S]`` (a table of
+``max_seq`` rows) after that, and ``pos[pos]`` at decode;
+``"sinusoidal"`` adds nothing to the decoder's input (the reference has
+no branch for it).  An encoder-decoder config (``cfg.is_encdec``) takes
+``frames`` (B, S_enc, D): the encoder adds the sinusoidal table (both in
+the activation type), runs ``n_enc_layers`` non-causal attention blocks
+and ``enc_norm``; every decoder block attends its output after its
+self-attention (``norm_x``, ``xattn``), and the prefill caches that
+cross-attention's keys and values (``ck``, ``cv``) for decode.
 
 ``model.layers`` is one ``nn.ModuleList`` in the order the reference's
-``_run_units`` runs its layers: the remainder layers, then the units.
-Parameter names are the reference's leaf names (``embed``,
-``final_norm.scale``, ``layers.<i>.attn.wq``, ``layers.<i>.ffn.w_gate``,
-``layers.<i>.mix.up``, ...; see ``repro_torch.carry.lm_params_from_arrays``).
-``caches`` is a list with one dict per layer, ``{"attn": {...}}``,
-``{"rec": {...}}`` or ``{"mix": {...}}``.
+``_run_units`` runs its layers: the remainder layers, then the units;
+``model.enc_layers`` the encoder's.  Parameter names are the
+reference's leaf names (``embed``, ``pos``, ``final_norm.scale``,
+``layers.<i>.attn.wq``, ``layers.<i>.xattn.wq``, ``layers.<i>.ffn.w_gate``,
+``layers.<i>.mix.up``, ``enc_layers.<u>.attn.wq``, ``enc_norm.scale``, ...;
+see ``repro_torch.carry.lm_params_from_arrays``).  ``caches`` is a list
+with one dict per layer, ``{"attn": {...}}`` (with ``ck``/``cv`` in a
+decoder with cross-attention), ``{"rec": {...}}`` or ``{"mix": {...}}``.
 
 Blocks: attention (with a dense or, when ``cfg.is_moe``, an MoE FFN),
 RG-LRU recurrent blocks with dense FFNs, and the xLSTM blocks (mLSTM,
-sLSTM; no FFN).  Encoder-decoder cross-attention and image prefixes
-(with learned or sinusoidal positions) raise ``NotImplementedError``:
-they come with the next family (ROADMAP Queue 1, item 1).
+sLSTM; no FFN).
 """
 from __future__ import annotations
 
@@ -49,10 +63,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import xlstm_blocks as xl_mod
-from repro_torch.models.common import Init, Norm, padded_vocab
+from repro_torch.models.common import Init, Norm, padded_vocab, sinusoidal_positions
 from repro_torch.models.mlp import MLP
-
-_LATER = "is ported with the next model family (ROADMAP Queue 1, item 1)"
 
 # block kind -> (module, full-sequence function, decode function)
 _MIX = {"mlstm": (xl_mod.MLSTMBlock, xl_mod.mlstm_forward, xl_mod.mlstm_decode),
@@ -74,14 +86,22 @@ def layer_kinds(cfg) -> List[str]:
 
 
 class Block(nn.Module):
-    def __init__(self, ini: Init, cfg, kind: str):
+    """One layer.  An attention block of an encoder-decoder's decoder
+    (``cross``) also attends the encoder's output; an encoder block is
+    not ``causal``."""
+
+    def __init__(self, ini: Init, cfg, kind: str, cross: bool = False, causal: bool = True):
         super().__init__()
         if kind not in ("attn", "rec", *_MIX):
             raise ValueError(f"block kind {kind!r}")
-        self.cfg, self.kind = cfg, kind
+        self.cfg, self.kind, self.causal = cfg, kind, causal
+        self.cross = cross and kind == "attn"
         self.norm1 = Norm(ini, cfg)
         if kind == "attn":
             self.attn = attn_mod.Attention(ini, cfg)
+            if self.cross:
+                self.norm_x = Norm(ini, cfg)
+                self.xattn = attn_mod.Attention(ini, cfg, cross=True)
         elif kind == "rec":
             self.rec = rec_mod.RecBlock(ini, cfg)
         else:  # the xLSTM blocks carry their own projections: no FFN
@@ -101,24 +121,31 @@ class Block(nn.Module):
             return x + y, aux
         return x + self.ffn(h), None
 
-    def _mix(self, h, positions):
-        if self.kind == "attn":
-            return attn_mod.attention_forward(self.attn, h, self.cfg, positions)
-        return rec_mod.rec_forward(self.rec, h)
+    def _mix_ffn(self, x, h, positions, enc_out):
+        """The block after its first norm ``h``: its mixer, the
+        cross-attention over ``enc_out`` and the FFN."""
+        if self.kind == "rec":
+            return self._ffn(x + rec_mod.rec_forward(self.rec, h))
+        x = x + attn_mod.attention_forward(self.attn, h, self.cfg, positions, causal=self.causal)
+        if self.cross:
+            x = x + attn_mod.attention_forward(self.xattn, self.norm_x(x), self.cfg, positions,
+                                               kv_x=enc_out)
+        return self._ffn(x)
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, enc_out=None):
         """Full-sequence block: (x, the MoE loss of its FFN or None)."""
         h = self.norm1(x)
         if self.kind in _MIX:
             return x + _MIX[self.kind][1](self.mix, h, self.cfg), None
-        return self._ffn(x + self._mix(h, positions))
+        return self._mix_ffn(x, h, positions, enc_out)
 
-    def prefill(self, x, positions, seq_len: int):
+    def prefill(self, x, positions, seq_len: int, enc_out=None):
         """Full-sequence block and the cache its decode starts from.  The
         attention and recurrent caches come from a second pass over the
-        same normed input (the reference's ``_block_prefill_cache``); the
-        xLSTM blocks' from the forward pass itself (the same call on the
-        same input as the reference's second pass)."""
+        same normed input (the reference's ``_block_prefill_cache``), the
+        cross-attention's from the encoder's output; the xLSTM blocks'
+        from the forward pass itself (the same call on the same input as
+        the reference's second pass)."""
         h = self.norm1(x)
         if self.kind in _MIX:
             y, cache = _MIX[self.kind][1](self.mix, h, self.cfg, with_cache=True)
@@ -126,9 +153,11 @@ class Block(nn.Module):
         if self.kind == "attn":
             cache = {"attn": attn_mod.prefill_cache_entries(self.attn, h, self.cfg, positions,
                                                             seq_len)}
+            if self.cross:
+                cache["attn"].update(attn_mod.cross_cache_entries(self.xattn, enc_out, self.cfg))
         else:
             cache = {"rec": rec_mod.rec_prefill_cache(self.rec, h, self.cfg.conv_width)}
-        return self._ffn(x + self._mix(h, positions))[0], cache
+        return self._mix_ffn(x, h, positions, enc_out)[0], cache
 
     def decode(self, x, cache: dict, pos):
         """One token per sequence; returns (x, cache)."""
@@ -138,29 +167,40 @@ class Block(nn.Module):
             return x + y, {"mix": c}
         if self.kind == "attn":
             y, c = attn_mod.attention_decode(self.attn, h, cache["attn"], pos, self.cfg)
+            x = x + y
+            if self.cross:
+                y, _ = attn_mod.attention_decode(self.xattn, self.norm_x(x), c, pos, self.cfg,
+                                                 cross=True)
+                x = x + y
             cache = {"attn": c}
         else:
             y, c = rec_mod.rec_decode(self.rec, h, cache["rec"])
+            x = x + y
             cache = {"rec": c}
-        return self._ffn(x + y)[0], cache
+        return self._ffn(x)[0], cache
 
 
 class LM(nn.Module):
-    def __init__(self, cfg, ini: Init):
+    def __init__(self, cfg, ini: Init, max_seq: int = 0):
         super().__init__()
-        if cfg.is_encdec:
-            raise NotImplementedError(f"encoder-decoder cross-attention {_LATER}")
-        if cfg.n_img_tokens:
-            raise NotImplementedError(f"the image prefix {_LATER}")
-        if cfg.pos_kind not in ("rope", "none"):
-            raise NotImplementedError(f"pos_kind {cfg.pos_kind!r} {_LATER}")
+        if cfg.pos_kind == "learned" and max_seq <= 0:
+            raise ValueError(f"{cfg.name} learns its positions: give the table's length "
+                             "max_seq > 0")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         D, Vp = cfg.d_model, padded_vocab(cfg.vocab_size)
         self.embed = ini.normal((Vp, D), scale=1.0)
         self.final_norm = Norm(ini, cfg)
         self.lm_head = None if cfg.tie_embeddings else ini.fan_in((D, Vp))
-        self.layers = nn.ModuleList(Block(ini, cfg, kind) for kind in layer_kinds(cfg))
+        self.pos = ini.normal((max_seq, D), scale=0.01) if cfg.pos_kind == "learned" else None
+        self.layers = nn.ModuleList(Block(ini, cfg, kind, cross=cfg.is_encdec)
+                                    for kind in layer_kinds(cfg))
+        self.enc_layers = self.enc_norm = None
+        if cfg.is_encdec:
+            enc_cfg = cfg.replace(block_pattern=(), is_encdec=False, n_layers=cfg.n_enc_layers)
+            self.enc_layers = nn.ModuleList(Block(ini, enc_cfg, "attn", causal=False)
+                                            for _ in range(cfg.n_enc_layers))
+            self.enc_norm = Norm(ini, cfg)
 
     def _embed(self, tokens):
         return self.embed[tokens].to(self.dtype)
@@ -169,45 +209,81 @@ class LM(nn.Module):
         w = self.embed.T if self.lm_head is None else self.lm_head
         return (self.final_norm(x) @ w.to(x.dtype)).to(torch.float32)
 
-    def forward_with_aux(self, tokens):
-        """tokens (B, S) -> (logits (B, S, Vp) float32, the MoE
-        load-balancing loss summed over the layers, a float32 scalar)."""
+    def _layer(self, layer, x, positions, enc_out=None):
+        """One full-sequence layer, under ``cfg.remat`` when a gradient is
+        being recorded."""
         remat = self.cfg.remat
         if remat not in ("none", *_REMAT):
             raise ValueError(f"remat={remat!r}: one of 'none', 'full', 'dots'")
+        if remat != "none" and torch.is_grad_enabled():
+            return checkpoint(layer, x, positions, enc_out, use_reentrant=False,
+                              **_REMAT[remat])
+        return layer(x, positions, enc_out)
+
+    def _encode(self, frames):
+        """The encoder over the frame embeddings (B, S_enc, D): the
+        sinusoidal table added in the activation type, the blocks run
+        non-causal, ``enc_norm`` last."""
+        S = frames.shape[1]
+        table = torch.from_numpy(sinusoidal_positions(S, self.cfg.d_model))
+        x = frames.to(self.dtype) + table.to(device=frames.device, dtype=self.dtype)[None]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        for layer in self.enc_layers:
+            x = self._layer(layer, x, positions)[0]
+        return self.enc_norm(x)
+
+    def _assemble(self, tokens, img_embeds, frames):
+        """(x, positions, the encoder's output or None): the image prefix
+        before the token embeddings, then the learned positions."""
+        cfg = self.cfg
+        if cfg.n_img_tokens and img_embeds is None:
+            raise ValueError(f"{cfg.name} takes img_embeds (B, {cfg.n_img_tokens}, "
+                             f"{cfg.d_model})")
+        if cfg.is_encdec and frames is None:
+            raise ValueError(f"{cfg.name} takes frames (B, {cfg.enc_seq}, {cfg.d_model})")
         x = self._embed(tokens)
-        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        if cfg.n_img_tokens:
+            x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
+        enc_out = self._encode(frames) if cfg.is_encdec else None
+        S = x.shape[1]
+        if self.pos is not None:
+            x = x + self.pos[:S].to(x.dtype)[None]
+        return x, torch.arange(S, dtype=torch.int32, device=x.device), enc_out
+
+    def forward_with_aux(self, tokens, img_embeds=None, frames=None):
+        """tokens (B, S) -> (logits (B, n_img + S, Vp) float32, the MoE
+        load-balancing loss summed over the layers, a float32 scalar)."""
+        x, positions, enc_out = self._assemble(tokens, img_embeds, frames)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
-            if remat != "none" and torch.is_grad_enabled():
-                x, a = checkpoint(layer, x, positions, use_reentrant=False, **_REMAT[remat])
-            else:
-                x, a = layer(x, positions)
+            x, a = self._layer(layer, x, positions, enc_out)
             if a is not None:
                 aux = aux + a
         return self._logits(x), aux
 
-    def forward(self, tokens):
-        """tokens (B, S) -> logits (B, S, Vp) float32."""
-        return self.forward_with_aux(tokens)[0]
+    def forward(self, tokens, img_embeds=None, frames=None):
+        """tokens (B, S) -> logits (B, n_img + S, Vp) float32."""
+        return self.forward_with_aux(tokens, img_embeds, frames)[0]
 
-    def prefill(self, tokens, cache_len: int = 0):
+    def prefill(self, tokens, cache_len: int = 0, img_embeds=None, frames=None):
         """Full-context pass: (last-token logits (B, 1, Vp), caches).
-        cache_len: the KV-cache allocation (>= prompt + decode budget);
-        defaults to the prompt length."""
-        x = self._embed(tokens)
+        cache_len: the KV-cache allocation (>= image prefix + prompt +
+        decode budget); defaults to the sequence's length."""
+        x, positions, enc_out = self._assemble(tokens, img_embeds, frames)
         S = x.shape[1]
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)
         caches = []
         for layer in self.layers:
-            x, cache = layer.prefill(x, positions, max(cache_len, S))
+            x, cache = layer.prefill(x, positions, max(cache_len, S), enc_out)
             caches.append(cache)
         return self._logits(x[:, -1:]), caches
 
     def decode_step(self, caches: list, tokens, pos):
-        """tokens (B, 1) at absolute positions pos (B,) -> (logits
-        (B, 1, Vp), caches); attention caches are updated in place."""
+        """tokens (B, 1) at absolute positions pos (B,) (after the image
+        prefix) -> (logits (B, 1, Vp), caches); attention caches are
+        updated in place."""
         x = self._embed(tokens)
+        if self.pos is not None:
+            x = x + self.pos[pos.long()].to(x.dtype)[:, None]
         out = []
         for layer, cache in zip(self.layers, caches):
             x, cache = layer.decode(x, cache, pos)
@@ -230,16 +306,19 @@ def lm_loss(logits, labels, weights=None, z_loss: float = 1e-4):
     return (ce * w).sum() / w.sum().clamp_min(1.0)
 
 
-def init(cfg, seed: int = 0, device: DeviceLike = None) -> LM:
-    """The model with random weights drawn on ``device`` from ``seed``."""
+def init(cfg, seed: int = 0, device: DeviceLike = None, max_seq: int = 0) -> LM:
+    """The model with random weights drawn on ``device`` from ``seed``;
+    ``max_seq`` rows of learned positions (``pos_kind="learned"``)."""
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return LM(cfg, Init(gen, getattr(torch, cfg.param_dtype), dev)).eval()
+    return LM(cfg, Init(gen, getattr(torch, cfg.param_dtype), dev), max_seq).eval()
 
 
 def from_state_dict(cfg, state: dict, device: DeviceLike = None) -> LM:
-    """The model with the weights of ``state`` (cast to ``param_dtype``)."""
+    """The model with the weights of ``state`` (cast to ``param_dtype``);
+    the learned position table as long as ``state["pos"]``."""
     dev = resolve(device)
-    model = LM(cfg, Init(None, getattr(torch, cfg.param_dtype), dev))
+    max_seq = state["pos"].shape[0] if "pos" in state else 0
+    model = LM(cfg, Init(None, getattr(torch, cfg.param_dtype), dev), max_seq)
     model.load_state_dict(state)
     return model.eval()

@@ -18,16 +18,18 @@ MOE_AUX_COEF = 0.01
 
 
 def make_loss_fn(cfg):
-    """(model, batch {'tokens', 'labels', optional 'weights'}) ->
-    (total, {"loss", "aux_loss"}), with the reference's signature: the
-    loss plus ``MOE_AUX_COEF`` times the MoE load-balancing loss (0
-    without an MoE layer).  The port has no image prefix yet (``lm.LM``
-    raises for one), so every logit is a text position's and nothing of
-    ``cfg`` is read."""
+    """(model, batch {'tokens', 'labels', optional 'weights',
+    'img_embeds', 'frames'}) -> (total, {"loss", "aux_loss"}), with the
+    reference's signature: the loss over the text positions (the first
+    ``cfg.n_img_tokens`` logits, the image prefix's, are dropped) plus
+    ``MOE_AUX_COEF`` times the MoE load-balancing loss (0 without an MoE
+    layer)."""
+    n_img = cfg.n_img_tokens or 0
 
     def loss_fn(model, batch):
-        logits, aux = model.forward_with_aux(batch["tokens"])
-        loss = lm.lm_loss(logits, batch["labels"], batch.get("weights"))
+        logits, aux = model.forward_with_aux(batch["tokens"], batch.get("img_embeds"),
+                                             batch.get("frames"))
+        loss = lm.lm_loss(logits[:, n_img:], batch["labels"], batch.get("weights"))
         total = loss + MOE_AUX_COEF * aux
         return total, {"loss": loss, "aux_loss": aux}
 
@@ -60,10 +62,13 @@ def make_train_step(cfg, ocfg: adamw.AdamWConfig = adamw.AdamWConfig()):
 
 
 def make_prefill_step(cache_len: int = 0):
-    """(model, batch {'tokens': (B, S)}) -> (next_token (B,) int32, caches)."""
+    """(model, batch {'tokens': (B, S), optional 'img_embeds', 'frames'})
+    -> (next_token (B,) int32, caches)."""
 
     def prefill_step(model, batch):
-        logits, caches = model.prefill(batch["tokens"], cache_len=cache_len)
+        logits, caches = model.prefill(batch["tokens"], cache_len=cache_len,
+                                       img_embeds=batch.get("img_embeds"),
+                                       frames=batch.get("frames"))
         return logits[:, -1].argmax(dim=-1).to(torch.int32), caches
 
     return prefill_step

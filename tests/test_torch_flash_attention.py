@@ -33,6 +33,10 @@ def _torch(a, dtype):
     (1, 2, 96, 160, 32, True, 48, "float32"),   # sliding window + padding
     (1, 1, 64, 256, 64, False, 0, "float32"),   # cross attention
     (2, 2, 1, 96, 32, True, 0, "float32"),      # decode-style single query
+    (1, 2, 160, 160, 96, True, 0, "bfloat16"),  # D = 96 (phi-3-vision), causal
+    (1, 2, 150, 150, 64, False, 0, "bfloat16"),  # encoder: non-causal, ragged S
+    (2, 1, 40, 150, 64, False, 0, "bfloat16"),  # cross: Sq != Sk, ragged Sk
+    (2, 1, 40, 150, 64, False, 0, "float32"),
 ])
 def test_flash_attention_matches_reference_kernel(B, H, Sq, Sk, D, causal, window, dtype):
     q, k, v = _qkv(B * 7 + Sk, B, H, Sq, Sk, D)
@@ -170,6 +174,9 @@ _GRID = [  # the reference's kernel-test grid, plus blocks of 128 and ring holes
     (2, 2, 1, 96, 32, True, 0, None),       # a single query
     (1, 1, 300, 300, 64, True, 100, None),  # three blocks, window across tiles
     (1, 1, 2, 64, 16, True, 0, 40),         # ring holes; the second query sees nothing
+    (1, 2, 200, 200, 96, True, 0, None),    # D = 96: a whole swizzle atom and half of one
+    (1, 1, 150, 150, 64, False, 0, None),   # encoder: non-causal, ragged last key tile
+    (2, 1, 40, 150, 64, False, 0, None),    # cross: Sq != Sk, ragged Sk
 ]
 
 
@@ -373,6 +380,7 @@ def test_attention_function_plumbing_on_cpu():
     (1, 1, 45, 45, 32, True, 10, True),    # holes, a row with no key
     (1, 2, 200, 200, 256, True, 96, False),  # D = 256, window across tiles
     (1, 2, 100, 100, 48, False, 0, False),   # D = 48, zero-filled to 64 on the card
+    (2, 1, 40, 150, 96, False, 0, False),    # cross, ragged Sk, D = 96 (128 on the card)
 ])
 def test_attention_bwd_bf16_ref_matches_jax_vjp(B, H, Sq, Sk, D, causal, window, holes):
     """``attention_bwd_bf16_ref`` (the bf16 wgmma backward's arithmetic) on
@@ -447,6 +455,7 @@ _F32_GRID = [  # the float32 cases of the reference's kernel-test grid, ring hol
     (2, 2, 1, 96, 32, True, 0, None),
     (1, 1, 2, 64, 16, True, 0, 40),
     (1, 2, 200, 200, 256, True, 96, None),
+    (2, 1, 40, 150, 64, False, 0, None),  # cross, ragged Sk
 ]
 
 
@@ -494,6 +503,7 @@ def test_3xtf32_forward_matches_reference_kernel(B, H, Sq, Sk, D, causal, window
     (1, 1, 45, 45, 32, True, 10, True),    # holes, a row with no key
     (1, 2, 200, 200, 256, True, 96, False),  # D = 256: dQ's key tiles of 16
     (1, 2, 100, 100, 48, False, 0, False),   # D = 48 (compiled as 64)
+    (2, 1, 40, 150, 64, False, 0, False),    # cross, ragged Sk
 ])
 def test_attention_bwd_3xtf32_ref_matches_jax_vjp(B, H, Sq, Sk, D, causal, window, holes):
     """``attention_bwd_3xtf32_ref`` (the float32 backward kernels'

@@ -191,9 +191,3 @@ def test_serve_takes_a_depth_cut_model():
     other = lm.init(pcfg.replace(n_layers=2, d_ff=64), seed=0, device="cpu")
     with pytest.raises(ValueError, match="depth"):
         port_serve.serve("phi3.5-moe-42b-a6.6b", device="cpu", params=other)
-
-
-@pytest.mark.parametrize("arch", ["whisper-small", "phi-3-vision-4.2b"])
-def test_other_families_are_a_later_slice(arch):
-    with pytest.raises(NotImplementedError, match="item 1"):
-        lm.init(port_config(arch).reduced(), device="cpu")

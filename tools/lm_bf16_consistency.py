@@ -29,14 +29,24 @@ Families and their handoffs (as ``chip_smoke.py`` runs them):
 - ``xlstm``: ``xlstm-350m`` at 24 layers, prefill(4096) + 256 steps,
   each step against the forward's logits at its position (the first
   step, the largest and the last); faults: the mLSTM stabilizer ``m``
-  zeroed, the conv tail dropped, the sLSTM ``h`` reset.
+  zeroed, the conv tail dropped, the sLSTM ``h`` reset;
+- ``whisper``: ``whisper-small`` at 12 encoder + 12 decoder layers over
+  1,500 seeded frames, prefill(223) + one step against prefill(224);
+  faults: the learned position one off at decode, the cross-attention
+  cache (``ck``/``cv``) zeroed, the cache's ``ck``/``cv`` taken from an
+  encoder run without its sinusoidal table;
+- ``vlm``: ``phi-3-vision-4.2b`` at 32 layers, 576 seeded image
+  embeddings before 512 text tokens, prefill(511) + one step against
+  prefill(512); faults: decode positions not offset by the image prefix,
+  the image prefix's KV entries lost, the decode position one off.
 
     PYTHONPATH=src python tools/lm_bf16_consistency.py [--family NAME] [--width W]
-    # recurrentgemma ~1 min, moe ~3 min, xlstm ~4 min
+    # recurrentgemma ~1 min, moe ~3 min, xlstm ~4 min, whisper ~1 min, vlm ~2 min
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 from unittest import mock
 
@@ -53,19 +63,27 @@ def _rel(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
-def handoff(model, tokens, prefill_len: int, pos_shift: int = 0, mutate=None) -> float:
+def handoff(model, tokens, prefill_len: int, pos_shift: int = 0, mutate=None, inputs=None,
+            prefix_fault=None) -> float:
     """bf16 prefill(prefill_len) + teacher-forced decode steps against
     prefill of all of ``tokens``: relative L2 of the last logits.
-    ``mutate`` plants a fault in the caches the decode starts from."""
+    ``inputs``: the image embeddings or frames both prefills take; decode
+    positions start after the image prefix.  ``mutate`` plants a fault in
+    the caches the decode starts from, ``prefix_fault`` (a context
+    manager) one in the shorter prefill alone."""
     n = tokens.shape[1]
+    inputs = inputs or {}
+    n_img = model.cfg.n_img_tokens
+    cache_len = n_img + n + 8
     with torch.inference_mode():
-        full, _ = model.prefill(tokens, cache_len=n + 8)
-        _, caches = model.prefill(tokens[:, :prefill_len], cache_len=n + 8)
+        full, _ = model.prefill(tokens, cache_len=cache_len, **inputs)
+        with prefix_fault or contextlib.nullcontext():
+            _, caches = model.prefill(tokens[:, :prefill_len], cache_len=cache_len, **inputs)
         if mutate is not None:
             caches = mutate(caches)
         for t in range(prefill_len, n):
-            step, caches = model.decode_step(caches, tokens[:, t:t + 1],
-                                             torch.tensor([t + pos_shift], dtype=torch.int32))
+            pos = torch.tensor([n_img + t + pos_shift], dtype=torch.int32)
+            step, caches = model.decode_step(caches, tokens[:, t:t + 1], pos)
     return _rel(step[0, -1], full[0, -1])
 
 
@@ -83,9 +101,9 @@ def _conv_lost(p, x, conv_width):
     return cache
 
 
-def _models(cfg):
+def _models(cfg, max_seq: int = 0):
     """The bf16 model and the same weights in f32."""
-    model = lm.init(cfg, seed=0, device="cpu")
+    model = lm.init(cfg, seed=0, device="cpu", max_seq=max_seq)
     f32 = cfg.replace(dtype="float32", param_dtype="float32")
     ref = lm.from_state_dict(f32, {k: v.float() for k, v in model.state_dict().items()},
                              device="cpu")
@@ -97,11 +115,82 @@ def _tokens(cfg, n):
         0, cfg.vocab_size, size=(1, n)).astype(np.int32))
 
 
-def _drift(model, ref, tokens) -> float:
+def _drift(model, ref, tokens, inputs=None) -> float:
+    inputs = inputs or {}
     with torch.inference_mode():
-        bf, _ = model.prefill(tokens, cache_len=tokens.shape[1] + 8)
-        fp, _ = ref.prefill(tokens, cache_len=tokens.shape[1] + 8)
+        bf, _ = model.prefill(tokens, **inputs)
+        fp, _ = ref.prefill(tokens, **inputs)
     return _rel(bf[0, -1], fp[0, -1])
+
+
+def frontend_inputs(cfg, batch: int = 1, device="cpu", seed: int = 2) -> dict:
+    """Seeded non-zero image embeddings or frames (N(0, 1), as the token
+    embeddings are) for ``batch`` sequences on ``device``: what this
+    tool's handoffs and ``chip_smoke.py``'s (batch 1) and its reduced
+    card-vs-CPU check (batch 2) give the model."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    if cfg.n_img_tokens:
+        out["img_embeds"] = torch.randn(batch, cfg.n_img_tokens, cfg.d_model, generator=g)
+    if cfg.is_encdec:
+        out["frames"] = torch.randn(batch, cfg.enc_seq, cfg.d_model, generator=g)
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def _cross_cache_zeroed(caches):
+    for c in caches:
+        c["attn"]["ck"].zero_()
+        c["attn"]["cv"].zero_()
+    return caches
+
+
+def _image_kv_lost(n_img):
+    def mutate(caches):
+        for c in caches:
+            c["attn"]["k_pos"][:, :n_img] = -1
+        return caches
+    return mutate
+
+
+def whisper_family(width, head_dim, prompt=224):
+    cfg = get_config("whisper-small").reduced().replace(
+        n_layers=12, n_enc_layers=12, enc_seq=1500, d_model=width, head_dim=head_dim,
+        n_heads=width // head_dim, n_kv_heads=width // head_dim, d_ff=4 * width,
+        dtype="bfloat16", param_dtype="bfloat16")
+    model, ref = _models(cfg, max_seq=prompt + 24)
+    tokens, inputs = _tokens(cfg, prompt), frontend_inputs(cfg)
+    row = dict(family="whisper", width=width, layers=cfg.n_layers,
+               enc_layers=cfg.n_enc_layers, enc_seq=cfg.enc_seq, S=prompt,
+               bf16_vs_f32=_drift(model, ref, tokens, inputs),
+               consistency=handoff(model, tokens, prompt - 1, inputs=inputs))
+    row["learned_position_one_off"] = handoff(model, tokens, prompt - 1, pos_shift=1,
+                                              inputs=inputs)
+    row["cross_cache_zeroed"] = handoff(model, tokens, prompt - 1, inputs=inputs,
+                                        mutate=_cross_cache_zeroed)
+    no_table = mock.patch.object(lm, "sinusoidal_positions",
+                                 lambda n, d: np.zeros((n, d), np.float32))
+    row["cross_cache_without_sinusoidal_table"] = handoff(
+        model, tokens, prompt - 1, inputs=inputs, prefix_fault=no_table)
+    return row
+
+
+def vlm_family(width, head_dim, text=512):
+    cfg = get_config("phi-3-vision-4.2b").reduced().replace(
+        n_layers=32, n_img_tokens=576, d_model=width, head_dim=head_dim,
+        n_heads=width // head_dim, n_kv_heads=width // head_dim, d_ff=2 * width,
+        dtype="bfloat16", param_dtype="bfloat16")
+    model, ref = _models(cfg)
+    tokens, inputs = _tokens(cfg, text), frontend_inputs(cfg)
+    row = dict(family="vlm", width=width, layers=cfg.n_layers, n_img=cfg.n_img_tokens,
+               S=cfg.n_img_tokens + text, bf16_vs_f32=_drift(model, ref, tokens, inputs),
+               consistency=handoff(model, tokens, text - 1, inputs=inputs))
+    row["decode_positions_not_offset"] = handoff(model, tokens, text - 1, inputs=inputs,
+                                                 pos_shift=-cfg.n_img_tokens)
+    row["image_kv_lost"] = handoff(model, tokens, text - 1, inputs=inputs,
+                                   mutate=_image_kv_lost(cfg.n_img_tokens))
+    row["decode_position_one_off"] = handoff(model, tokens, text - 1, inputs=inputs,
+                                             pos_shift=1)
+    return row
 
 
 def recurrentgemma(width, head_dim):
@@ -243,7 +332,8 @@ def xlstm_family(width, _head_dim, prefill_len=4096, steps=256):
 
 
 WIDTHS = {64: 16, 256: 64}  # width: head dim
-FAMILIES = {"recurrentgemma": recurrentgemma, "moe": moe_family, "xlstm": xlstm_family}
+FAMILIES = {"recurrentgemma": recurrentgemma, "moe": moe_family, "xlstm": xlstm_family,
+            "whisper": whisper_family, "vlm": vlm_family}
 
 
 def main() -> None:
