@@ -63,7 +63,18 @@ one JSON line; any failure exits non-zero:
    serve prefill must launch ``flash_attention`` 12 and ``rglru_scan`` 52
    times, the training run 6, 3 (backward), 24 and 12 (backward), the
    other serving paths ``flash_attention`` once an attention layer, once
-   more a cross-attention layer and once an encoder layer;
+   more a cross-attention layer and once an encoder layer.  Last, the
+   roofline of every timed path (each serving path's prefill and decode
+   step, the training step): its step dry-run on meta tensors at the same
+   depth, batch and length (``repro_torch.launch.dryrun.dry_run``, in two
+   child processes of this script started before phase 3, ``--dry-runs``),
+   one ``roofline`` line each with the model, counted and analytic FLOPs,
+   the roofline's compute and memory terms at the H100's data-sheet peaks
+   (``repro_torch.roofline.roofline``, which the kernels' bounds below
+   read too), the measured seconds, ``mfu`` and ``roofline_share``, and
+   the dry run's peak memory beside the measured one; a share over 1.05
+   (the card beating its own roofline: a miscount) or a failed dry run
+   fails the run;
 4. kernels  — each kernel against its plain PyTorch version (bit for
    bit; PageRank within atol=1e-6, rtol=1e-5; attention within 2e-5 in
    float32 and 2e-2 in bf16, RG-LRU within 2e-5, the reference's kernel
@@ -131,6 +142,7 @@ import argparse
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -142,14 +154,20 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path[:0] = [str(SRC), str(ROOT / "tools")]  # the port; the handoff inputs
+if (SRC / "repro_torch" / "__init__.py").exists():  # else main() says so and exits 1
+    # the H100 SXM5's data-sheet peaks, one source for the kernels' bounds
+    # and the steps' rooflines
+    from repro_torch.roofline.roofline import (
+        FP32_FLOPS as FP32_OPS_PER_S,
+        HBM_BW as HBM_BYTES_PER_S,
+        INT32_OPS as INT32_OPS_PER_S,
+        PEAK_FLOPS as BF16_OPS_PER_S,
+        TF32_FLOPS as TF32_OPS_PER_S,
+    )
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
-TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak (data sheet)
-FP32_OPS_PER_S = 67e12  # H100 SXM FP32 CUDA-core peak, no tensor cores (data sheet)
-INT32_OPS_PER_S = 33.5e12  # H100 SXM5 INT32 peak (Hopper architecture white paper)
 PAGERANK_ATOL = 1e-5  # f32 device vs f64 host (taf/compile.py PageRankOp)
 DENSE_PR_TOL = dict(atol=1e-6, rtol=1e-5)  # f32 sums in another order
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 # the reference's kernel-test tolerances (tests/test_kernels.py): f32 sums
 # in another order; bf16 outputs rounded from nearby f32 values
 ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
@@ -640,8 +658,17 @@ def lm_serve(device, recorder=None, reduced=False):
          decode_tok_per_s=stats["tok_per_s"],
          param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
          peak_memory_bytes=peak, launches=launches, first_tokens=gen[0, :4].tolist())
+    timed_serve("lm serve", stats, peak)
     lm_consistency(model, prompt)
     return launches
+
+
+def timed_serve(tag: str, stats: dict, peak) -> None:
+    """Keep a serving path's prefill seconds and seconds a decode step
+    (the mean of its LM_GEN - 1 steps) for the roofline phase."""
+    TIMED[f"{tag} prefill"] = dict(seconds=stats["prefill_s"], peak_memory_bytes=peak)
+    TIMED[f"{tag} decode"] = dict(seconds=stats["decode_s"] / (LM_GEN - 1),
+                                  peak_memory_bytes=peak)
 
 
 def lm_consistency(model, S: int):
@@ -918,6 +945,7 @@ def family_serve(device, arch: str, layers=None, recorder=None, reduced=False,
         fail(f"{tag}: non-finite decode logits")
     if launches != want:
         fail(f"{tag} launched {launches}, not {want}")
+    timed_serve(tag, stats, peak)
     return model, launches
 
 
@@ -1160,6 +1188,7 @@ def lm_train(device, recorder=None, reduced=False):
         fail(f"lm train: parameters without a finite non-zero gradient in step 0: {bad}")
     if device.type == "cuda" and launches != TRAIN_LAUNCHES:
         fail(f"lm train launched {launches}, not {TRAIN_LAUNCHES}")
+    TIMED["lm train"] = dict(seconds=statistics.median(step_s[1:]), peak_memory_bytes=peak)
     return launches
 
 
@@ -1216,6 +1245,141 @@ def lm_train_reduced(device, recorder=None):
         fail(f"lm train reduced: card vs CPU losses differ by {cpu_rel} (relative)")
     if device.type == "cuda" and launches != REDUCED_TRAIN_LAUNCHES:
         fail(f"lm train reduced launched {launches}, not {REDUCED_TRAIN_LAUNCHES}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3g: the roofline of every timed path
+# ---------------------------------------------------------------------------
+
+# each timed path's measured seconds (a serving path's prefill and mean
+# decode step, the training step's median after the first) and the path's
+# peak memory, filled by phase 3
+TIMED: dict = {}
+# a card that beats the roofline of its own step means the count is wrong
+ROOFLINE_SHARE_MAX = 1.05
+# the xLSTM prefill's dry run steps through 6 sLSTM layers x 4,096 cells on
+# meta, minutes of host time: it runs in a process of its own beside
+# another for every other path, both started before phase 3 and read after
+SLOW_DRY_RUNS = ("ssm serve prefill",)
+DRY_RUN_TIMEOUT_S = 900
+
+
+def roofline_paths(reduced: bool = False) -> dict:
+    """Each timed path's (config, shape, cache_len, max_seq) for
+    ``repro_torch.launch.dryrun.dry_run``: the depth, batch, length, cache
+    allocation and position table phase 3 ran it at (``reduced``: the CPU
+    rehearsal's).  A decode shape's length is the context before the first
+    decode step (image prefix and prompt)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+
+    serving = {"lm serve": (LM_ARCH, None, LM_BATCH, LM_PROMPT),
+               "moe serve": (MOE_ARCH, MOE_LAYERS, LM_BATCH, LM_PROMPT),
+               "ssm serve": (XLSTM_ARCH, None, LM_BATCH, LM_PROMPT),
+               "audio serve": (AUDIO_ARCH, None, AUDIO_BATCH, AUDIO_PROMPT),
+               "vlm serve": (VLM_ARCH, None, LM_BATCH, LM_PROMPT)}
+    paths = {}
+    for tag, (arch, layers, batch, prompt) in serving.items():
+        cfg = get_config(arch)
+        if reduced:
+            cfg, prompt = cfg.reduced(), 48
+        elif layers:
+            cfg = cfg.replace(n_layers=layers)
+        ctx = cfg.n_img_tokens + prompt
+        for kind in ("prefill", "decode"):
+            paths[f"{tag} {kind}"] = (cfg, ShapeConfig(f"{tag} {kind}", ctx, batch, kind),
+                                      ctx + LM_GEN + 8, prompt + LM_GEN + 8)
+    cfg, batch, seq = get_config(LM_ARCH).replace(n_layers=TRAIN_LAYERS), TRAIN_BATCH, TRAIN_SEQ
+    if reduced:
+        cfg, batch, seq = get_config(LM_ARCH).reduced(), 2, 64
+    paths["lm train"] = (cfg, ShapeConfig("lm train", seq, batch, "train"), 0, 4 * seq)
+    return paths
+
+
+def dry_runs(names, reduced: bool) -> int:
+    """The child process of the roofline phase: each named path's dry run
+    on meta, printed as one JSON line {name: record}."""
+    from repro_torch.launch.dryrun import dry_run
+
+    paths = roofline_paths(reduced)
+    for name in names:
+        cfg, shape, cache_len, max_seq = paths[name]
+        rec = dry_run(cfg, shape, cache_len=cache_len, max_seq=max_seq)
+        print(json.dumps({name: rec}), flush=True)
+    return 0
+
+
+def start_dry_runs(reduced: bool = False) -> list:
+    """Start the dry runs of every timed path in two child processes (no
+    card: meta tensors only), so their host time overlaps phase 3's."""
+    names = list(roofline_paths(reduced))
+    groups = [[n for n in names if n in SLOW_DRY_RUNS],
+              [n for n in names if n not in SLOW_DRY_RUNS]]
+    cmd = [sys.executable, str(Path(__file__).resolve())]
+    if reduced:
+        cmd += ["--device", "cpu"]
+    return [subprocess.Popen(cmd + ["--dry-runs", *g], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                             env=dict(os.environ, OMP_NUM_THREADS="1"))
+            for g in groups]
+
+
+def stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def read_dry_runs(procs) -> dict:
+    """Wait for the dry-run children; {path name: record}.  Fails when one
+    failed or ran over DRY_RUN_TIMEOUT_S."""
+    recs = {}
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=DRY_RUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            stop(procs)
+            fail(f"roofline: a dry run took over {DRY_RUN_TIMEOUT_S} s")
+        if p.returncode:
+            fail(f"roofline: a dry run failed ({p.returncode}): {err[-3000:]}")
+        for line in out.splitlines():
+            recs.update(json.loads(line))
+    return recs
+
+
+def roofline_phase(recs: dict, reduced: bool = False) -> None:
+    """One line a timed path: its model FLOPs (``roofline.model_flops`` of
+    the active parameters), counted and analytic FLOPs, the roofline's
+    compute and memory terms at the H100's data-sheet peaks, the measured
+    seconds, ``mfu`` = model FLOPs / (measured s x PEAK_FLOPS) and
+    ``roofline_share`` = the roofline's step time / measured s; the dry
+    run's peak-memory estimate beside the path's measured peak.  Fails
+    when a share exceeds ROOFLINE_SHARE_MAX."""
+    from repro_torch.roofline import roofline as rl
+
+    shares = {}
+    for name, (cfg, shape, cache_len, _) in roofline_paths(reduced).items():
+        rec, timed = recs[name], TIMED[name]
+        roof, seconds = rec["roofline"], timed["seconds"]
+        mf = rl.model_flops(shape.kind, rec["n_active_params"], rec["tokens_per_step"])
+        shares[name] = roof["step_time_s"] / seconds
+        emit(phase="roofline", path=name, arch=cfg.name, layers=cfg.n_layers, kind=shape.kind,
+             batch=shape.global_batch, seq_len=shape.seq_len, cache_len=cache_len,
+             tokens=rec["tokens_per_step"], n_active_params=rec["n_active_params"],
+             model_flops=mf, counted_flops=rec["cost"]["flops"],
+             analytic_flops=rec["analytic"]["flops_global"],
+             counted_vs_analytic=rec["analytic"]["counted_vs_analytic"],
+             analytic_bytes=rec["analytic"]["bytes_per_dev"]["total"],
+             compute_s=roof["compute_s"], memory_s=roof["memory_s"], dominant=roof["dominant"],
+             step_time_s=roof["step_time_s"], roofline_mfu=roof["mfu"], measured_s=seconds,
+             mfu=mf / (seconds * rl.PEAK_FLOPS), roofline_share=shares[name],
+             predicted_peak_memory_bytes=rec["memory"]["peak_bytes_est"],
+             measured_peak_memory_bytes=timed["peak_memory_bytes"],
+             dry_run_seconds=rec["trace_s"], source=roof["source"])
+    over = {n: v for n, v in shares.items() if v > ROOFLINE_SHARE_MAX}
+    if over:
+        fail(f"roofline: measured faster than the roofline allows {over}: a miscount")
 
 
 # ---------------------------------------------------------------------------
@@ -2048,18 +2212,26 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--events", type=int, default=200_000)
+    ap.add_argument("--dry-runs", nargs="+", metavar="PATH",
+                    help="the roofline phase's child: dry-run these timed paths on meta")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "__init__.py").exists():
         print(f"chip_smoke: no src/repro_torch beside {__file__}", file=sys.stderr)
         return 1
-    sys.path[:0] = [str(SRC), str(ROOT / "tools")]  # the port; the handoff inputs
+    if args.dry_runs:
+        return dry_runs(args.dry_runs, reduced=args.device == "cpu")
     if args.device == "cpu":  # rehearsal of the main paths, no result
-        service_path(torch.device("cpu"), main_path(torch.device("cpu"), args.events)[1])
-        lm_serve(torch.device("cpu"), reduced=True)
-        family_paths(torch.device("cpu"), reduced=True)
-        lm_train(torch.device("cpu"), reduced=True)
-        lm_train_reduced(torch.device("cpu"))
-        encdec_vlm_paths(torch.device("cpu"), reduced=True)
+        procs = start_dry_runs(reduced=True)
+        try:
+            service_path(torch.device("cpu"), main_path(torch.device("cpu"), args.events)[1])
+            lm_serve(torch.device("cpu"), reduced=True)
+            family_paths(torch.device("cpu"), reduced=True)
+            lm_train(torch.device("cpu"), reduced=True)
+            lm_train_reduced(torch.device("cpu"))
+            encdec_vlm_paths(torch.device("cpu"), reduced=True)
+            roofline_phase(read_dry_runs(procs), reduced=True)
+        finally:
+            stop(procs)
         print("chip_smoke: CPU rehearsal only, no result", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2090,34 +2262,40 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0, per_source=seconds,
          ptxas=ptxas)
 
-    # 3. the main path on the card
-    dev = torch.device("cuda")
-    recorder = Recorder()
-    launches, local = main_path(dev, args.events, recorder)
-    by_path = {"main path": dict(launches)}
-    service_path(dev, local)
-    del local
-    lm_launches = lm_serve(dev, recorder)
-    if lm_launches != LM_LAUNCHES:
-        fail(f"lm serve launched {lm_launches}, not {LM_LAUNCHES}")
-    launches.update(lm_launches)
-    lm_reduced_card_vs_cpu(dev)
-    torch.cuda.empty_cache()  # the 17 GB model is gone
-    by_path["lm serve"] = lm_launches
-    by_path.update(family_paths(dev, recorder))
-    torch.cuda.empty_cache()  # the MoE and xLSTM models are gone
-    train_launches = lm_train(dev, recorder)
-    by_path["lm train"] = train_launches
-    launches.update({k: v for k, v in train_launches.items() if k.endswith(".bwd")})
-    lm_train_reduced(dev, recorder)
-    torch.cuda.empty_cache()  # the 33 GB training state is gone
-    # after training: the inputs these paths record for phase 4 would stay
-    # in the allocator's segments and split the 71 GB training peak
-    by_path.update(encdec_vlm_paths(dev, recorder))
-    torch.cuda.empty_cache()  # whisper and phi-3-vision are gone
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail(f"kernels of the main path never launched: {missing}")
+    # 3. the main path on the card, the timed paths' dry runs beside it
+    procs = start_dry_runs()
+    try:
+        dev = torch.device("cuda")
+        recorder = Recorder()
+        launches, local = main_path(dev, args.events, recorder)
+        by_path = {"main path": dict(launches)}
+        service_path(dev, local)
+        del local
+        lm_launches = lm_serve(dev, recorder)
+        if lm_launches != LM_LAUNCHES:
+            fail(f"lm serve launched {lm_launches}, not {LM_LAUNCHES}")
+        launches.update(lm_launches)
+        lm_reduced_card_vs_cpu(dev)
+        torch.cuda.empty_cache()  # the 17 GB model is gone
+        by_path["lm serve"] = lm_launches
+        by_path.update(family_paths(dev, recorder))
+        torch.cuda.empty_cache()  # the MoE and xLSTM models are gone
+        train_launches = lm_train(dev, recorder)
+        by_path["lm train"] = train_launches
+        launches.update({k: v for k, v in train_launches.items() if k.endswith(".bwd")})
+        lm_train_reduced(dev, recorder)
+        torch.cuda.empty_cache()  # the 33 GB training state is gone
+        # after training: the inputs these paths record for phase 4 would stay
+        # in the allocator's segments and split the 71 GB training peak
+        by_path.update(encdec_vlm_paths(dev, recorder))
+        torch.cuda.empty_cache()  # whisper and phi-3-vision are gone
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            fail(f"kernels of the main path never launched: {missing}")
+        # 3g. each timed path's roofline
+        roofline_phase(read_dry_runs(procs))
+    finally:
+        stop(procs)
 
     # 4. each kernel against its plain version
     rows = []

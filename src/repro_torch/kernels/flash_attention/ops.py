@@ -2,8 +2,11 @@
 
 Dispatch is on the tensor's device: on a CUDA device a hand-written
 kernel (``flash_attention.cu``) runs and any build or launch error
-raises; on the CPU the plain version (``ref.py``) runs.  ``LAUNCHES``
-counts the kernel launches, one per wrapper call that reaches the card.
+raises; on the CPU the plain version (``ref.py``) runs, and on ``meta``
+tensors (the dry run, ``repro_torch.launch.dryrun``) it runs too, which
+there computes nothing and only gives shapes and a FLOP count.
+``LAUNCHES`` counts the kernel launches, one per wrapper call that
+reaches the card.
 
 On the card the input type picks the kernel, a fixed choice: bfloat16
 goes to the tensor-core kernel (``wgmma`` fed by TMA; P is rounded to
@@ -45,6 +48,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
 LAUNCHES = {"flash_attention": 0, "bwd": 0}
+PLAIN_DEVICES = ("cpu", "meta")  # devices the plain version serves
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
@@ -60,7 +64,7 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int =
     heads); q_pos (Sq,), k_pos (Sk,) int positions, ``k_pos = -1`` a hole.
     float32 or bfloat16 in, float32 accumulation, out (B, H, Sq, D) in
     q's type; a query with no key to attend gives 0."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return ref.attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                  window=window).to(q.dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -72,7 +76,7 @@ def flash_attention_lse(q, k, v, q_pos, k_pos, *, causal: bool = True, window: i
     """``flash_attention`` and each row's log-sum-exp of its scaled scores
     ((B, H, Sq) float32, ``-inf`` for a row with no key): the forward the
     backward needs."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return (ref.attention_ref(q, k, v, q_pos, k_pos, causal=causal, window=window)
                 .to(q.dtype), ref.lse_ref(q, k, q_pos, k_pos, causal=causal, window=window))
     return _forward(q, k, v, q_pos, k_pos, causal, window, with_lse=True)
@@ -138,7 +142,7 @@ def flash_attention_bwd(q, k, v, q_pos, k_pos, o, lse, do, *, causal: bool = Tru
     with row log-sum-exp ``lse`` (from ``flash_attention_lse``) and output
     gradient ``do``; each in its input's shape and type, dk and dv per head
     of the (expanded) k and v."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return tuple(g.to(q.dtype) for g in ref.attention_bwd_ref(
             q, k, v, q_pos, k_pos, o, lse, do, causal=causal, window=window))
     q_pos, k_pos = _check(q, k, v, q_pos, k_pos)

@@ -3,7 +3,8 @@
 Dispatch is on the tensor's device: on a CUDA device the hand-written
 kernels (``rglru_scan.cu``) run and any build or launch error raises; on
 the CPU the plain versions (``ref.py``) run, and autograd differentiates
-the plain scan.  ``LAUNCHES`` counts the kernel launches, one per
+the plain scan; on ``meta`` tensors (the dry run) they run too, computing
+nothing.  ``LAUNCHES`` counts the kernel launches, one per
 wrapper call that reaches the card: ``rglru`` the forward scan, ``bwd``
 the backward scan.
 
@@ -22,6 +23,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.rglru_scan import ref
 
 LAUNCHES = {"rglru": 0, "bwd": 0}
+PLAIN_DEVICES = ("cpu", "meta")  # devices the plain versions serve
 CHUNK = 64  # steps a block of the kernel scans (rglru_scan.cu's CHUNK)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -33,7 +35,7 @@ def rglru(log_a, b):
     """``h_t = exp(log_a_t) * h_{t-1} + b_t`` over axis 1 with ``h_0 = 0``;
     log_a, b: (B, S, W) float32 -> h (B, S, W) float32."""
     log_a, b = torch.as_tensor(log_a), torch.as_tensor(b)
-    if log_a.device.type == "cpu":
+    if log_a.device.type in PLAIN_DEVICES:
         return ref.rglru_ref(log_a, b)
     if torch.is_grad_enabled() and (log_a.requires_grad or b.requires_grad):
         return RGLRUScan.apply(log_a, b)
@@ -81,7 +83,7 @@ def rglru_bwd(log_a, h, dh):
     returns ``(dlog_a, db)`` = ``(g_t exp(log_a_t) h_{t-1}, g_t)``; all
     (B, S, W) float32."""
     log_a, h, dh = (torch.as_tensor(t) for t in (log_a, h, dh))
-    if log_a.device.type == "cpu":
+    if log_a.device.type in PLAIN_DEVICES:
         return ref.rglru_bwd_ref(log_a, h, dh)
     log_a, h, dh = _check("rglru_bwd", log_a, h, dh)
     B, S, W = log_a.shape

@@ -25,14 +25,8 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import position_mask
-from repro_torch.models.common import (
-    Init,
-    apply_rope,
-    n_kv_virtual,
-    rms_norm,
-    rope_tables,
-    softcap,
-)
+from repro_torch.models.common import Init, apply_rope, rms_norm, rope_tables, softcap
+from repro_torch.models.sharding import n_kv_virtual
 
 NEG = -0.7 * torch.finfo(torch.float32).max
 
@@ -219,16 +213,22 @@ def cache_len(cfg, seq_len: int) -> int:
     return seq_len
 
 
-def init_attn_cache(cfg, batch: int, seq_len: int, device, model_axis: int = 1) -> dict:
+def init_attn_cache(cfg, batch: int, seq_len: int, device, model_axis: int = 1,
+                    cross_len: int = 0) -> dict:
     """k/v: (B, Sc, KVv, hd); k_pos: (B, Sc) absolute positions of the
-    stored entries, -1 = empty."""
+    stored entries, -1 = empty; with ``cross_len``, also the
+    cross-attention's ck/cv: (B, cross_len, KVv, hd), zeros."""
     hd = cfg.resolved_head_dim
     kvv = n_kv_virtual(cfg.n_heads_p, cfg.n_kv_p, model_axis)
     sc = cache_len(cfg, seq_len)
     dt = getattr(torch, cfg.dtype)
-    return {"k": torch.zeros((batch, sc, kvv, hd), dtype=dt, device=device),
-            "v": torch.zeros((batch, sc, kvv, hd), dtype=dt, device=device),
-            "k_pos": torch.full((batch, sc), -1, dtype=torch.int32, device=device)}
+    c = {"k": torch.zeros((batch, sc, kvv, hd), dtype=dt, device=device),
+         "v": torch.zeros((batch, sc, kvv, hd), dtype=dt, device=device),
+         "k_pos": torch.full((batch, sc), -1, dtype=torch.int32, device=device)}
+    if cross_len:
+        c["ck"] = torch.zeros((batch, cross_len, kvv, hd), dtype=dt, device=device)
+        c["cv"] = torch.zeros((batch, cross_len, kvv, hd), dtype=dt, device=device)
+    return c
 
 
 def _decode_mha(q, k, v, k_pos, pos, window: int, logit_cap: float):

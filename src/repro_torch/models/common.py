@@ -21,21 +21,6 @@ import torch
 from torch import nn
 
 
-def n_kv_virtual(n_heads: int, n_kv: int, model_axis: int) -> int:
-    """Smallest KV-head replication target that (a) is a multiple of n_kv,
-    (b) divides n_heads, and (c) is divisible by the model-axis size, so
-    the KV cache keeps the reference's layout; n_kv when impossible.
-    (``repro.models.sharding.n_kv_virtual``; one card means model_axis=1.)"""
-    if n_kv % model_axis == 0:
-        return n_kv
-    v = n_kv
-    while v <= n_heads:
-        if v % n_kv == 0 and n_heads % v == 0 and v % model_axis == 0:
-            return v
-        v += n_kv
-    return n_kv
-
-
 class Init:
     """Parameter factory on one device; ``generator=None`` leaves the
     values uninitialised (for parameters that are loaded next)."""

@@ -306,6 +306,28 @@ def lm_loss(logits, labels, weights=None, z_loss: float = 1e-4):
     return (ce * w).sum() / w.sum().clamp_min(1.0)
 
 
+def init_cache(cfg, batch: int, seq_len: int, device: DeviceLike = None,
+               model_axis: int = 1) -> list:
+    """Empty decode caches for a ``seq_len``-token context, one dict a
+    layer as ``prefill`` returns them (the reference's ``init_cache``;
+    an encoder-decoder's attention caches also hold ``ck``/``cv`` over
+    ``cfg.enc_seq`` frames)."""
+    dev = resolve(device)
+    cross_len = cfg.enc_seq if cfg.is_encdec else 0
+    out = []
+    for kind in layer_kinds(cfg):
+        if kind == "attn":
+            out.append({"attn": attn_mod.init_attn_cache(cfg, batch, seq_len, dev, model_axis,
+                                                         cross_len)})
+        elif kind == "rec":
+            out.append({"rec": rec_mod.init_rec_cache(cfg, batch, dev)})
+        elif kind == "mlstm":
+            out.append({"mix": xl_mod.init_mlstm_cache(cfg, batch, dev)})
+        else:
+            out.append({"mix": xl_mod.init_slstm_state(cfg, batch, dev)})
+    return out
+
+
 def init(cfg, seed: int = 0, device: DeviceLike = None, max_seq: int = 0) -> LM:
     """The model with random weights drawn on ``device`` from ``seed``;
     ``max_seq`` rows of learned positions (``pos_kind="learned"``)."""

@@ -27,7 +27,7 @@ COPIES = [
     "configs/phi_3_vision_4_2b.py", "configs/qwen2_7b.py", "configs/qwen3_1_7b.py",
     "configs/recurrentgemma_9b.py", "configs/whisper_small.py", "configs/xlstm_350m.py",
     "service/__init__.py", "service/wire.py", "service/cell.py", "service/client.py",
-    "service/stress.py", "data/pipeline.py", "launch/elastic.py",
+    "service/stress.py", "data/pipeline.py", "launch/elastic.py", "roofline/analytic.py",
 ]
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro\.", re.M)
 

@@ -77,8 +77,17 @@ def test_rglru_matches_sequential():
 
 
 def test_rglru_rejects_other_devices():
-    with pytest.raises(ValueError):
-        ops.rglru(torch.zeros(1, 4, 4, device="meta"), torch.zeros(1, 4, 4, device="meta"))
+    """Only CUDA tensors reach the kernels: their launch path rejects any
+    other device.  CPU and ``meta`` tensors take the plain version before
+    it (``meta`` in the dry run, where it computes nothing)."""
+    for dev in ("meta", "cpu"):
+        t = torch.zeros(1, 4, 4, device=dev)
+        with pytest.raises(ValueError):
+            ops._check("rglru", t, t)
+    meta = torch.zeros(1, 4, 4, device="meta")
+    launches = dict(ops.LAUNCHES)
+    assert ops.rglru(meta, meta).device.type == "meta"
+    assert ops.LAUNCHES == launches
 
 
 CHUNK = ops.CHUNK
