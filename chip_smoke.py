@@ -49,7 +49,18 @@ one JSON line; any failure exits non-zero:
    the same losses, and the CPU's plain versions the same within 1e-4;
    step 0's full-width loss must repeat 3047.7 (it runs only forward
    kernels), and the run prints the losses, step seconds and peak memory
-   the CUDA-core attention backward gave beside its own.
+   the CUDA-core attention backward gave beside its own.  Then
+   ``multi-card on one card``: a 1-rank NCCL group (a FileStore under
+   build/), ``sharded_degree_series`` over a ("workers",) mesh on the
+   degree step's operand bit for bit against the ``mesh=None`` series;
+   the same full-width training cut to 5 layers for 2 steps through
+   ``Sharder.distribute`` on a (data=1, model=1) mesh (DTensor
+   parameters and batches, the attention and RG-LRU kernels and their
+   backward kernels through ``local_map``: 4, 2, 16 and 8 launches), its
+   losses bit for bit the unsharded run's first two;
+   ``compress_grads_podwise`` over a (pod=1, data=1) mesh on its layer-0
+   gradients through NCCL's all-reduce, within one int8 quantum of the
+   plain computation on the CPU.
    After training, the encoder-decoder and image-prefix families, whole: ``serve(
    "whisper-small", 32, 224, 16)`` (12 encoder layers over 32 × 1,500
    frames, 12 decoder layers with cross-attention; ``flash_attention`` 36
@@ -68,6 +79,10 @@ one JSON line; any failure exits non-zero:
    step, the training step): its step dry-run on meta tensors at the same
    depth, batch and length (``repro_torch.launch.dryrun.dry_run``, in two
    child processes of this script started before phase 3, ``--dry-runs``),
+   and a third child, ``MESH_DRY_RUN`` (``recurrentgemma-9b train_4k``)
+   on the reference's 16 x 16 mesh over a fake group of 256 ranks, whose
+   line prints its per-device counts, its collectives and its roofline
+   with the collective term (CPU counts, not device metrics);
    one ``roofline`` line each with the model, counted and analytic FLOPs,
    the roofline's compute and memory terms at the H100's data-sheet peaks
    (``repro_torch.roofline.roofline``, which the kernels' bounds below
@@ -411,8 +426,9 @@ def main_path(device, n_events: int, recorder=None):
     ts16 = np.linspace(q0, q1 - 1, 16).astype(np.int64)
     fused_and_staged(sub16.node_compute(tc.triangles(), style="temporal",
                                         points=ts16), "triangles T=16")
-    kernel_style_degree(device, sub.materialize().operand,
-                        np.linspace(q0, q1 - 1, 128).astype(np.int64))
+    degree_sots = sub.materialize().operand
+    degree_ts = np.linspace(q0, q1 - 1, 128).astype(np.int64)
+    degree = kernel_style_degree(device, degree_sots, degree_ts)
     dense_analytics(device, sub16.materialize().operand, ts16)
 
     if recorder is not None:
@@ -423,7 +439,7 @@ def main_path(device, n_events: int, recorder=None):
          plan_compile=store.cache_stats()["plan_compile"])
     local = dict(events=events, cfg=store.cfg, ts=ts, host=host64, t_one=t_one,
                  one_host=one_host, cc_span=(q0, q1), cc_points=cc_points,
-                 components=components)
+                 components=components, degree=(degree_sots, degree_ts, degree))
     return launches, local
 
 
@@ -467,6 +483,7 @@ def kernel_style_degree(device, sots, ts):
          T=len(ts), series_seconds=t1 - t0, one_point_seconds=t2 - t1,
          host_replay_seconds=t3 - t2, plan_seconds=[t5 - t4, t6 - t5],
          stats=dict(taf_exec.STATS), stats_delta=stats)
+    return series
 
 
 def dense_analytics(device, sots, ts):
@@ -1189,6 +1206,7 @@ def lm_train(device, recorder=None, reduced=False):
     if device.type == "cuda" and launches != TRAIN_LAUNCHES:
         fail(f"lm train launched {launches}, not {TRAIN_LAUNCHES}")
     TIMED["lm train"] = dict(seconds=statistics.median(step_s[1:]), peak_memory_bytes=peak)
+    TRAIN_LOSSES[:] = losses
     return launches
 
 
@@ -1248,6 +1266,150 @@ def lm_train_reduced(device, recorder=None):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3f: multi-card on one card
+# ---------------------------------------------------------------------------
+
+# the full-width training run's losses (``lm_train``), which the sharded
+# run on a 1 x 1 mesh must repeat bit for bit
+TRAIN_LOSSES: list = []
+MULTI_CARD_STEPS = 2
+# per step, as lm train launches them (remat "full")
+MULTI_CARD_LAUNCHES = {k: v * MULTI_CARD_STEPS // TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
+COMPRESSED_LAYER = "layers.0."  # the gradients the compression check takes
+# the card's scale (amax / 127: CUDA multiplies by the reciprocal of a
+# scalar divisor) may sit one float32 ulp from the CPU's, so the card's
+# int8 value may differ from the CPU's by one, only where the CPU's
+# x / scale lies this close to a rounding tie (relative to |x / scale|)
+COMPRESSION_TIE_REL = 2.0 ** -21
+COMPRESSION_SCALE_ULPS = 1
+
+
+def compression_check(grads, ghat, new_err) -> dict:
+    """``compress_grads_podwise``'s result on a one-pod mesh against the
+    CPU: each leaf's g_hat lies bit for bit on the card's own int8 grid
+    (``_dequantize(_quantize(g))`` on the card: a compressor that did not
+    quantize fails here), the residual is g - g_hat bit for bit, the
+    card's scales are within COMPRESSION_SCALE_ULPS ulps of the CPU's and
+    its int8 values equal the CPU's except at rounding ties
+    (COMPRESSION_TIE_REL), where they differ by one at most.  Returns the
+    counts; fails on any other difference."""
+    from repro_torch.optim import compression
+
+    ch = compression.CHUNK
+    out = {"values": 0, "moved": 0, "ties": 0, "q_differ": 0, "scale_ulps": 0}
+    for k, g in grads.items():
+        n = g.numel()
+        flat = g.detach().to(torch.float32).reshape(-1)
+        if not torch.equal(new_err[k], g.to(torch.float32) - ghat[k]):
+            fail(f"multi-card: the residual of {k} is not the gradient less g_hat")
+        q_card, s_card = compression._quantize(torch.nn.functional.pad(flat, (0, (-n) % ch)))
+        grid = compression._dequantize(q_card, s_card)[:n].reshape(g.shape)
+        if not torch.equal(ghat[k], grid):
+            fail(f"multi-card: g_hat of {k} is not the card's int8 grid")
+        x = torch.nn.functional.pad(flat.cpu(), (0, (-n) % ch))
+        q_cpu, s_cpu = compression._quantize(x)
+        s_card = s_card.cpu()
+        ulps = int(((s_card.view(torch.int32) - s_cpu.view(torch.int32)).abs().max()))
+        t = (x.reshape(-1, ch) / s_cpu).abs()
+        tie = ((t - t.floor() - 0.5).abs() <= t * COMPRESSION_TIE_REL).reshape(-1)[:n]
+        dq = (q_card.cpu().to(torch.int32) - q_cpu.to(torch.int32)).reshape(-1)[:n]
+        if ulps > COMPRESSION_SCALE_ULPS:
+            fail(f"multi-card: the card's scales of {k} are {ulps} ulps off the CPU's")
+        if bool(((dq != 0) & ~tie).any()) or int(dq.abs().max()) > 1:
+            fail(f"multi-card: the card's int8 values of {k} differ from the CPU's "
+                 f"away from rounding ties")
+        out["values"] += n
+        out["moved"] += int((grid.reshape(-1) != flat).sum())
+        out["ties"] += int(tie.sum())
+        out["q_differ"] += int((dq != 0).sum())
+        out["scale_ulps"] = max(out["scale_ulps"], ulps)
+    return out
+
+
+def multi_card_phase(device, degree):
+    """The multi-card code on one card: a 1-rank NCCL group (a FileStore
+    under build/), then (1) ``sharded_degree_series`` over a ("workers",)
+    mesh on the main path's operand, bit for bit against the ``mesh=None``
+    series (``degree``: the operand, its times and that series); (2)
+    ``LM_ARCH`` at full width cut to TRAIN_LAYERS layers trained
+    MULTI_CARD_STEPS steps through ``Sharder.distribute`` on a (data=1,
+    model=1) mesh, the kernels run through ``local_map``, the losses bit
+    for bit the unsharded run's first ones (same seed, same batches); (3)
+    ``compress_grads_podwise`` over a (pod=1, data=1) mesh on that run's
+    layer-0 gradients, through NCCL's all-reduce, held against the CPU by
+    ``compression_check``.  Returns the kernels' launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import Sharder
+    from repro_torch.optim import compression
+    from repro_torch.taf import exec as taf_exec
+
+    store_path = ROOT / "build" / "multi_card_store"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    store_path.unlink(missing_ok=True)
+    torch.cuda.set_device(device.index or 0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1), rank=0,
+                            world_size=1)
+    try:
+        sots, ts, want = degree
+        t0 = time.perf_counter()
+        got = taf_exec.sharded_degree_series(sots, ts, mesh=taf_exec.make_worker_mesh(),
+                                             device=device)
+        degree_s = time.perf_counter() - t0
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            fail("multi-card: sharded_degree_series on a ('workers',) mesh != mesh=None")
+
+        cfg = get_config(LM_ARCH).replace(n_layers=TRAIN_LAYERS)
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = lm.init(cfg, seed=0, device=device)
+        read = _train_kernels(None, None)
+        t0 = time.perf_counter()
+        model, _, losses = train_mod.run(LM_ARCH, steps=TRAIN_STEPS, stop_after=MULTI_CARD_STEPS,
+                                         batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduced=False, seed=0,
+                                         log_every=1, device=device, params=model,
+                                         shd=Sharder(mesh))
+        sync(device)
+        train_s = time.perf_counter() - t0
+        launches = read()
+        peak = torch.cuda.max_memory_allocated()
+        want_losses = TRAIN_LOSSES[:MULTI_CARD_STEPS]
+        parted = [i for i, (a, b) in enumerate(zip(losses, want_losses)) if a != b]
+
+        grads = {k: p.grad.to_local() for k, p in model.named_parameters()
+                 if k.startswith(COMPRESSED_LAYER)}
+        del model
+        pod_mesh = make_host_mesh((1, 1), ("pod", "data"))
+        err = compression.init_error_state(grads)
+        ghat, new_err = compression.compress_grads_podwise(grads, err, pod_mesh)
+        comp = compression_check(grads, ghat, new_err)
+        n_leaves = len(grads)
+        del grads, ghat, new_err, err
+        emit(phase="main_path", check="multi-card on one card", backend="nccl",
+             world_size=dist.get_world_size(), degree_members=len(sots), degree_T=len(ts),
+             degree_seconds=degree_s, arch=LM_ARCH, layers=cfg.n_layers,
+             mesh={"data": 1, "model": 1},
+             steps=len(losses), losses=losses, unsharded_losses=want_losses,
+             parted_at_steps=parted, train_seconds=train_s, peak_memory_bytes=peak,
+             launches=launches, compressed_leaves=n_leaves,
+             compression={**comp, "tie_rel": COMPRESSION_TIE_REL})
+        if parted:
+            fail(f"multi-card: sharded losses {losses} part from the unsharded "
+                 f"{want_losses} at step {parted[0]}")
+        if launches != MULTI_CARD_LAUNCHES:
+            fail(f"multi-card launched {launches}, not {MULTI_CARD_LAUNCHES}")
+        return launches
+    finally:
+        dist.destroy_process_group()
+        store_path.unlink(missing_ok=True)
+
+
+# ---------------------------------------------------------------------------
 # Phase 3g: the roofline of every timed path
 # ---------------------------------------------------------------------------
 
@@ -1261,6 +1423,8 @@ ROOFLINE_SHARE_MAX = 1.05
 # meta, minutes of host time: it runs in a process of its own beside
 # another for every other path, both started before phase 3 and read after
 SLOW_DRY_RUNS = ("ssm serve prefill",)
+# a third child: one training step on the reference's 16 x 16 mesh
+MESH_DRY_RUN = (LM_ARCH, "train_4k")
 DRY_RUN_TIMEOUT_S = 900
 
 
@@ -1310,18 +1474,19 @@ def dry_runs(names, reduced: bool) -> int:
 
 
 def start_dry_runs(reduced: bool = False) -> list:
-    """Start the dry runs of every timed path in two child processes (no
-    card: meta tensors only), so their host time overlaps phase 3's."""
+    """Start the dry runs of every timed path in two child processes, and
+    MESH_DRY_RUN in a third (no card: meta tensors only), so their host
+    time overlaps phase 3's."""
     names = list(roofline_paths(reduced))
     groups = [[n for n in names if n in SLOW_DRY_RUNS],
               [n for n in names if n not in SLOW_DRY_RUNS]]
     cmd = [sys.executable, str(Path(__file__).resolve())]
     if reduced:
         cmd += ["--device", "cpu"]
-    return [subprocess.Popen(cmd + ["--dry-runs", *g], stdout=subprocess.PIPE,
+    return [subprocess.Popen(cmd + args, stdout=subprocess.PIPE,
                              stderr=subprocess.PIPE, text=True, cwd=ROOT,
                              env=dict(os.environ, OMP_NUM_THREADS="1"))
-            for g in groups]
+            for args in [["--dry-runs", *g] for g in groups] + [["--mesh-dry-run"]]]
 
 
 def stop(procs) -> None:
@@ -1380,6 +1545,48 @@ def roofline_phase(recs: dict, reduced: bool = False) -> None:
     over = {n: v for n, v in shares.items() if v > ROOFLINE_SHARE_MAX}
     if over:
         fail(f"roofline: measured faster than the roofline allows {over}: a miscount")
+    mesh_roofline(recs["mesh"])
+
+
+def mesh_dry_run(reduced: bool) -> int:
+    """The roofline phase's child: MESH_DRY_RUN's step on the reference's
+    16 x 16 mesh over a fake process group of 256 ranks (meta tensors, no
+    card; the reduced config on a 2 x 2 mesh in the CPU rehearsal),
+    printed as one JSON line {"mesh": record}."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import lower_cell
+
+    arch, shape = MESH_DRY_RUN
+    if reduced:
+        rec = lower_cell(arch, ShapeConfig("reduced train", 64, 4, "train"), False,
+                         reduced=True, mesh_shape=(2, 2))
+    else:
+        rec = lower_cell(arch, shape, False)
+    print(json.dumps({"mesh": rec}, default=float), flush=True)
+    return 0
+
+
+def mesh_roofline(rec: dict) -> None:
+    """One line for MESH_DRY_RUN's record: its per-device counts, the
+    collectives DTensor issued (summarized with the reference's ring
+    model) and the roofline with its collective term.  These are counts
+    on the CPU, not device metrics.  Fails when the dry run failed or
+    recorded no collective."""
+    if rec.get("status") != "OK":
+        fail(f"roofline: the mesh dry run failed: {rec.get('error')}")
+    roof, coll = rec["roofline"], rec["collectives"]
+    emit(phase="roofline", path="mesh " + " ".join(MESH_DRY_RUN), arch=rec["arch"],
+         shape=rec["shape"], mesh=rec["mesh"], n_chips=rec["n_chips"], cpu_counts=True,
+         counted_flops_per_device=rec["cost"]["flops"],
+         counted_vs_analytic=rec["analytic"]["counted_vs_analytic"],
+         analytic_bytes_per_device=rec["analytic"]["bytes_per_dev"]["total"],
+         peak_bytes_per_device=rec["memory"]["peak_bytes_est"], collectives=coll,
+         compute_s=roof["compute_s"], memory_s=roof["memory_s"],
+         collective_s=roof["collective_s"], dominant=roof["dominant"],
+         step_time_s=roof["step_time_s"], roofline_mfu=roof["mfu"],
+         dry_run_seconds=rec["trace_s"], source=roof["source"])
+    if not coll["wire_bytes"] > 0:
+        fail("roofline: the mesh dry run recorded no collective")
 
 
 # ---------------------------------------------------------------------------
@@ -2214,12 +2421,16 @@ def main() -> int:
     ap.add_argument("--events", type=int, default=200_000)
     ap.add_argument("--dry-runs", nargs="+", metavar="PATH",
                     help="the roofline phase's child: dry-run these timed paths on meta")
+    ap.add_argument("--mesh-dry-run", action="store_true",
+                    help="the roofline phase's child: MESH_DRY_RUN on a fake group's mesh")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "__init__.py").exists():
         print(f"chip_smoke: no src/repro_torch beside {__file__}", file=sys.stderr)
         return 1
     if args.dry_runs:
         return dry_runs(args.dry_runs, reduced=args.device == "cpu")
+    if args.mesh_dry_run:
+        return mesh_dry_run(reduced=args.device == "cpu")
     if args.device == "cpu":  # rehearsal of the main paths, no result
         procs = start_dry_runs(reduced=True)
         try:
@@ -2270,6 +2481,7 @@ def main() -> int:
         launches, local = main_path(dev, args.events, recorder)
         by_path = {"main path": dict(launches)}
         service_path(dev, local)
+        degree = local["degree"]
         del local
         lm_launches = lm_serve(dev, recorder)
         if lm_launches != LM_LAUNCHES:
@@ -2285,6 +2497,9 @@ def main() -> int:
         launches.update({k: v for k, v in train_launches.items() if k.endswith(".bwd")})
         lm_train_reduced(dev, recorder)
         torch.cuda.empty_cache()  # the 33 GB training state is gone
+        by_path["multi-card"] = multi_card_phase(dev, degree=degree)
+        del degree
+        torch.cuda.empty_cache()  # the sharded run's training state is gone
         # after training: the inputs these paths record for phase 4 would stay
         # in the allocator's segments and split the 71 GB training peak
         by_path.update(encdec_vlm_paths(dev, recorder))

@@ -56,28 +56,47 @@ def _flat(tree, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
-def lm_params_from_arrays(cfg, tree: Dict) -> Dict[str, torch.Tensor]:
-    """The port's LM state dict from the reference's parameter tree (as
-    numpy, e.g. ``split_tree(lm.init(...))[0]``): ``rem/b<i>/...`` is
-    layer i, ``units/b<i>/...[u]`` layer ``n_rem + u * unit_len + i``
-    (``norm_x``, ``xattn`` included), ``enc_units/b0/...[u]`` encoder
-    layer u; ``pos`` and ``enc_norm`` keep their names."""
-    state = {}
+def lm_names(cfg, tree: Dict) -> Dict[str, tuple]:
+    """Each port state-dict name for the reference's parameter tree (of
+    arrays, or of anything else in its layout, e.g. the axes tree of
+    ``split_tree``): ``{name: (the reference's leaf path, a tuple of
+    keys; the unit index, or None for an unstacked leaf)}``.
+    ``rem/b<i>/...`` is layer i, ``units/b<i>/...[u]`` layer ``n_rem + u *
+    unit_len + i`` (``norm_x``, ``xattn`` included), ``enc_units/b0/...[u]``
+    encoder layer u; ``pos`` and ``enc_norm`` keep their names."""
+    names = {}
     stacks = ("rem", "units", "enc_units")
-    for name, value in _flat({k: v for k, v in tree.items() if k not in stacks}):
-        state[name] = torch.from_numpy(np.array(value))
-    for name, value in _flat(tree.get("enc_units") or {}):
+    for name, _ in _flat({k: v for k, v in tree.items() if k not in stacks}):
+        names[name] = (tuple(name.split(".")), None)
+    for name, _ in _flat(tree.get("enc_units") or {}):
         rest = name.split(".", 1)[1]
         for u in range(cfg.n_enc_layers):
-            state[f"enc_layers.{u}.{rest}"] = torch.from_numpy(np.array(value[u]))
-    for name, value in _flat(tree.get("rem") or {}):
+            names[f"enc_layers.{u}.{rest}"] = (("enc_units", *name.split(".")), u)
+    for name, _ in _flat(tree.get("rem") or {}):
         b, rest = name.split(".", 1)
-        state[f"layers.{int(b[1:])}.{rest}"] = torch.from_numpy(np.array(value))
-    for name, value in _flat(tree.get("units") or {}):
+        names[f"layers.{int(b[1:])}.{rest}"] = (("rem", *name.split(".")), None)
+    for name, _ in _flat(tree.get("units") or {}):
         b, rest = name.split(".", 1)
         for u in range(cfg.n_units):
             layer = cfg.n_rem_layers + u * cfg.unit_len + int(b[1:])
-            state[f"layers.{layer}.{rest}"] = torch.from_numpy(np.array(value[u]))
+            names[f"layers.{layer}.{rest}"] = (("units", *name.split(".")), u)
+    return names
+
+
+def lm_leaf(tree: Dict, path: tuple):
+    """The leaf of ``tree`` at ``path`` (``lm_names``' keys)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def lm_params_from_arrays(cfg, tree: Dict) -> Dict[str, torch.Tensor]:
+    """The port's LM state dict from the reference's parameter tree (as
+    numpy, e.g. ``split_tree(lm.init(...))[0]``), named by ``lm_names``."""
+    state = {}
+    for name, (path, unit) in lm_names(cfg, tree).items():
+        value = lm_leaf(tree, path)
+        state[name] = torch.from_numpy(np.array(value if unit is None else value[unit]))
     return state
 
 

@@ -4,9 +4,11 @@ shape and a type and hold nothing, where the reference uses
 ``jax.ShapeDtypeStruct``.  They back the dry run
 (``repro_torch.launch.dryrun``).
 
-One card holds the whole model, so the KV cache keeps the reference's
-layout at ``model_axis=1``.  The reference's ``batch_shardings`` and
-``opt_state_shardings`` wait with ``Sharder`` for the multi-card slice.
+On a mesh, ``batch_shardings`` and ``opt_state_shardings`` give the
+reference's placements (as DTensor placements, ``models.sharding``), and
+``cache_axes`` the logical axes of every cache entry, which
+``Sharder.tree_shardings`` turns into placements.  The KV cache holds
+the virtual KV heads of the mesh's model axis (``model_axis``).
 """
 from __future__ import annotations
 
@@ -15,10 +17,12 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.distributed.tensor import Replicate
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import lm
 from repro_torch.models.common import Init
+from repro_torch.models.sharding import Sharder
 from repro_torch.optim import adamw
 
 META = torch.device("meta")
@@ -50,6 +54,41 @@ def decode_specs(cfg: ModelConfig, shape: ShapeConfig, model_axis: int = 1,
     tokens = torch.empty((B, 1), dtype=torch.int32, device=META)
     pos = torch.empty((B,), dtype=torch.int32, device=META)
     return cache, tokens, pos
+
+
+def cache_axes(cfg: ModelConfig) -> list:
+    """The logical axes of every entry of ``lm.init_cache``'s caches, one
+    dict a layer, as the reference's ``init_cache`` tags them."""
+    out = []
+    for kind in lm.layer_kinds(cfg):
+        if kind == "attn":
+            kv = ("batch", "kv_seq", "kv_heads", "head_dim")
+            c = {"k": kv, "v": kv, "k_pos": ("batch", "kv_seq")}
+            if cfg.is_encdec:
+                c.update(ck=kv, cv=kv)
+            out.append({"attn": c})
+        elif kind == "rec":
+            out.append({"rec": {"h": ("batch", "rnn"), "conv": ("batch", None, "rnn")}})
+        elif kind == "mlstm":
+            out.append({"mix": {"C": ("batch", "heads", "head_dim", None),
+                                "n": ("batch", "heads", "head_dim"), "m": ("batch", "heads"),
+                                "conv": ("batch", None, "act_mlp")}})
+        else:
+            out.append({"mix": {k: ("batch", "heads", "head_dim") for k in "cnhm"}})
+    return out
+
+
+def batch_shardings(specs: Dict, shd: Sharder) -> Dict[str, list]:
+    """Each batch entry's placements: "batch" on its leading dimension."""
+    return {k: shd.param_sharding(v, ("batch",) + (None,) * (len(v.shape) - 1))
+            for k, v in specs.items()}
+
+
+def opt_state_shardings(param_shardings: Dict[str, list], mesh) -> Dict:
+    """AdamW's state: the moments placed as their parameters, the step
+    count replicated."""
+    return {"m": param_shardings, "v": param_shardings,
+            "count": [Replicate()] * mesh.ndim}
 
 
 def abstract_params(cfg: ModelConfig, max_seq: int) -> lm.LM:

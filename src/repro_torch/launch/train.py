@@ -10,6 +10,11 @@ with the reference's stub inputs: a VLM's image embeddings as zeros, an
 encoder-decoder's frames from ``np.random.RandomState(step)``.
 ``device=None`` means the CUDA card and raises without one; there the
 attention and RG-LRU layers train through their backward kernels.
+``shd`` (a ``models.sharding.Sharder`` over a DeviceMesh) trains the
+model sharded: its parameters become DTensors (``Sharder.distribute``),
+each rank takes its chunk of every batch (``specs.batch_shardings``) and
+the kernels run on each rank's block; it saves whole tensors, and does
+not resume (``CheckpointStore.restore_sharded`` places a save on a mesh).
 
   python -m repro_torch.launch.train --device cpu          # reduced qwen3-1.7b
   python -m repro_torch.launch.train --steps 30 --checkpoint-every 10   # on the card
@@ -26,7 +31,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.launch import specs
 from repro_torch.models import lm
+from repro_torch.models.sharding import NO_SHD, Sharder, place
 from repro_torch.optim import adamw
 from repro_torch.storage.checkpoint import CheckpointStore
 from repro_torch.storage.kvstore import DeltaStore
@@ -52,7 +59,7 @@ def run(arch: str = "qwen3-1.7b", steps: int = 30, batch: int = 8, seq: int = 64
         reduced: bool = True, checkpoint_every: int = 0, resume: bool = False,
         store: Optional[CheckpointStore] = None, seed: int = 0, log_every: int = 5,
         lr: float = 1e-3, stop_after: Optional[int] = None, *, device: DeviceLike = None,
-        params=None):
+        params=None, shd: Sharder = NO_SHD):
     """Train ``steps`` AdamW steps (or up to ``stop_after``), saving
     ``(parameters, optimizer state)`` to ``store`` every
     ``checkpoint_every`` steps and, with ``resume``, starting after the
@@ -65,11 +72,15 @@ def run(arch: str = "qwen3-1.7b", steps: int = 30, batch: int = 8, seq: int = 64
     cfg = model.cfg
     model.train()
     model.requires_grad_(True)
+    shd.distribute(model)
     ocfg = adamw.AdamWConfig(lr=lr, warmup_steps=max(steps // 10, 1), decay_steps=steps)
     named = dict(model.named_parameters())
     opt_state = adamw.init(named)
     start_step = 0
     if resume and store is not None and store.saves:
+        if shd.mesh is not None:
+            raise ValueError("a sharded run does not resume here: place the saved state "
+                             "with CheckpointStore.restore_sharded")
         (restored, opt_state), start_step = store.restore(example_tree=(named, opt_state))
         with torch.no_grad():
             for k, p in named.items():
@@ -79,7 +90,7 @@ def run(arch: str = "qwen3-1.7b", steps: int = 30, batch: int = 8, seq: int = 64
 
     pipe = SyntheticLM(PipelineConfig(global_batch=batch, seq_len=seq,
                                       vocab_size=cfg.vocab_size, n_shards=1), seed=seed)
-    step_fn = make_train_step(cfg, ocfg)
+    step_fn = make_train_step(cfg, ocfg, shd)
 
     losses = []
     pending = None
@@ -92,7 +103,11 @@ def run(arch: str = "qwen3-1.7b", steps: int = 30, batch: int = 8, seq: int = 64
             batch_np["frames"] = (np.random.RandomState(step).randn(batch, cfg.enc_seq,
                                                                     cfg.d_model)
                                   .astype(np.float32) * 0.02)
-        batch_t = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        if shd.mesh is None:
+            batch_t = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        else:
+            placed = specs.batch_shardings(batch_np, shd)
+            batch_t = {k: place(v, shd.mesh, placed[k], dev) for k, v in batch_np.items()}
         t0 = time.perf_counter()
         model, opt_state, metrics = step_fn(model, opt_state, batch_t)
         loss = float(metrics["loss"])  # waits for the step

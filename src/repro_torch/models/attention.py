@@ -22,11 +22,12 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import position_mask
 from repro_torch.models.common import Init, apply_rope, rms_norm, rope_tables, softcap
-from repro_torch.models.sharding import n_kv_virtual
+from repro_torch.models.sharding import NO_SHD, Sharder, flat_matmul, n_kv_virtual
 
 NEG = -0.7 * torch.finfo(torch.float32).max
 
@@ -45,52 +46,66 @@ class Attention(nn.Module):
         super().__init__()
         D, hd = cfg.d_model, cfg.resolved_head_dim
         H, KV = cfg.n_heads_p, cfg.n_kv_p  # padded (== raw when padding is off)
-        self.wq = ini.fan_in((D, H, hd), fan_axes=(0,))
-        self.wk = ini.fan_in((D, KV, hd), fan_axes=(0,))
-        self.wv = ini.fan_in((D, KV, hd), fan_axes=(0,))
-        self.wo = ini.fan_in((H, hd, D), fan_axes=(0, 1))
+        self.wq = ini.fan_in((D, H, hd), ("embed", "heads", "head_dim"), fan_axes=(0,))
+        self.wk = ini.fan_in((D, KV, hd), ("embed", "kv_heads", "head_dim"), fan_axes=(0,))
+        self.wv = ini.fan_in((D, KV, hd), ("embed", "kv_heads", "head_dim"), fan_axes=(0,))
+        self.wo = ini.fan_in((H, hd, D), ("heads", "head_dim", "embed"), fan_axes=(0, 1))
         if H != cfg.n_heads and ini.generator is not None:
             # zero the padded heads' output rows: function-preserving padding
             self.wo.data[cfg.n_heads:] = 0
         self.bq = self.bk = self.bv = self.bo = None
         if cfg.qkv_bias:
-            self.bq = ini.zeros((H, hd))
-            self.bk = ini.zeros((KV, hd))
-            self.bv = ini.zeros((KV, hd))
-            self.bo = ini.zeros((D,))
+            self.bq = ini.zeros((H, hd), ("heads", "head_dim"))
+            self.bk = ini.zeros((KV, hd), ("kv_heads", "head_dim"))
+            self.bv = ini.zeros((KV, hd), ("kv_heads", "head_dim"))
+            self.bo = ini.zeros((D,), ("act_embed",))
         self.q_norm = self.k_norm = None
         if cfg.qk_norm and not cross:
-            self.q_norm = ini.zeros((hd,))
-            self.k_norm = ini.zeros((hd,))
+            self.q_norm = ini.zeros((hd,), ("head_dim",))
+            self.k_norm = ini.zeros((hd,), ("head_dim",))
 
 
 def _proj(x, w, bias=None):
-    """x: (B, S, D) @ w: (D, H, hd) -> (B, S, H, hd)."""
-    y = torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype))
+    """x: (B, S, D) @ w: (D, H, hd) -> (B, S, H, hd), one product over
+    w's (H, hd) columns (``flat_matmul``: over (hd, H) columns where
+    head_dim is sharded, the fallback where the heads do not divide the
+    model axis)."""
+    y = flat_matmul(x, w.to(x.dtype))
     return y if bias is None else y + bias.to(x.dtype)
 
 
 def _out_proj(p: Attention, out):
-    """out: (B, S, H, hd) -> (B, S, D)."""
-    y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(out.dtype))
+    """out: (B, S, H, hd) -> (B, S, D) (over (hd, H) rows with head_dim
+    sharded, as ``_proj``)."""
+    if Sharder.shards(p.wo, 1):
+        y = out.transpose(-1, -2).flatten(-2) @ p.wo.to(out.dtype).transpose(0, 1).flatten(0, 1)
+    else:
+        y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(out.dtype))
     return y if p.bo is None else y + p.bo.to(out.dtype)
 
 
-def _project_q(p: Attention, x, cfg, positions, use_rope: bool):
-    """q (B, S, H, hd) with q-norm and (``use_rope``) rope applied."""
+def _project_q(p: Attention, x, cfg, positions, use_rope: bool, shd: Sharder = NO_SHD):
+    """q (B, S, H, hd) with q-norm and (``use_rope``) rope applied.  The
+    sharding constraint comes before rope, as the reference's: the
+    sequence gather then moves the projection, not rope's float32."""
     q = _proj(x, p.wq, p.bq)
     if p.q_norm is not None:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
+    q = shd.act(q, "batch", "seq", "act_heads", "head_dim")
     if use_rope:
         q = apply_rope(q, *rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta))
     return q
 
 
-def _project_kv(p: Attention, x, cfg, positions, use_rope: bool):
-    """k, v (B, S, KV, hd) with k-norm and (``use_rope``) rope applied."""
+def _project_kv(p: Attention, x, cfg, positions, use_rope: bool, shd: Sharder = NO_SHD):
+    """k, v (B, S, KV, hd) with k-norm and (``use_rope``) rope applied;
+    constrained on batch and sequence only (the constraint after the KV
+    expansion is the one on heads)."""
     k, v = _proj(x, p.wk, p.bk), _proj(x, p.wv, p.bv)
     if p.k_norm is not None:
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    k = shd.act(k, "batch", "kv_seq", None, None)
+    v = shd.act(v, "batch", "kv_seq", None, None)
     if use_rope:
         k = apply_rope(k, *rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta))
     return k, v
@@ -104,18 +119,19 @@ def _repeat_virtual(k, v, cfg, model_axis: int = 1):
     return k, v
 
 
-def _expand_kv(k, v, n_heads: int):
+def _expand_kv(k, v, n_heads: int, shd: Sharder = NO_SHD):
     """Repeat KV heads to n_heads, consecutive grouping (q head h reads kv
     head h // (H // KV), ``jnp.repeat``, i.e. ``repeat_interleave``).  One
     KV head is expanded as a stride-0 view, without a copy."""
     kvh = k.shape[2]
-    if kvh == n_heads:
-        return k, v
-    if kvh == 1:
+    if kvh == 1 and n_heads > 1:
         shape = (k.shape[0], k.shape[1], n_heads, k.shape[3])
-        return k.expand(shape), v.expand(shape)
-    rep = n_heads // kvh
-    return k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+        k, v = k.expand(shape), v.expand(shape)
+    elif kvh != n_heads:
+        rep = n_heads // kvh
+        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    return (shd.act(k, "batch", "kv_seq", "act_heads", "head_dim"),
+            shd.act(v, "batch", "kv_seq", "act_heads", "head_dim"))
 
 
 def _window(cfg) -> int:
@@ -179,11 +195,15 @@ def direct_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
 # ---------------------------------------------------------------------------
 
 
-def attention_forward(p: Attention, x, cfg, positions, *, causal: bool = True, kv_x=None):
+def attention_forward(p: Attention, x, cfg, positions, *, causal: bool = True, kv_x=None,
+                      shd: Sharder = NO_SHD):
     """Full-sequence attention sub-layer through the flash-attention
     kernel (pre-norm residual handled by the caller).  ``kv_x`` given
     means cross-attention: keys and values projected from ``kv_x`` at
-    positions ``arange(kv_x.shape[1])``, no rope, no causal mask."""
+    positions ``arange(kv_x.shape[1])``, no rope, no causal mask.  On a
+    mesh the kernel runs on each rank's block of batch and heads
+    (``Sharder.local``); a head_dim sharded where the heads do not divide
+    the model axis is gathered first."""
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError("the flash_attention kernel has no logit soft cap; "
                                   "no configuration of the port's path uses one")
@@ -193,12 +213,14 @@ def attention_forward(p: Attention, x, cfg, positions, *, causal: bool = True, k
     else:
         kv_x, kv_positions = x, positions
     use_rope = cfg.pos_kind == "rope" and not cross
-    q = _project_q(p, x, cfg, positions, use_rope)
-    k, v = _expand_kv(*_project_kv(p, kv_x, cfg, kv_positions, use_rope), cfg.n_heads_p)
-    out = fa_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                 positions, kv_positions, causal=causal and not cross,
-                                 window=_window(cfg))
-    return _out_proj(p, out.transpose(1, 2))
+    q = _project_q(p, x, cfg, positions, use_rope, shd)
+    k, v = _expand_kv(*_project_kv(p, kv_x, cfg, kv_positions, use_rope, shd), cfg.n_heads_p,
+                      shd)
+    out = shd.local(fa_ops.flash_attention,
+                    (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), (0, 1),
+                    positions, kv_positions, causal=causal and not cross, window=_window(cfg))
+    out = shd.act(out.transpose(1, 2), "batch", "seq", "act_heads", "head_dim")
+    return shd.act(_out_proj(p, out), "batch", "res_seq", "act_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -231,8 +253,8 @@ def init_attn_cache(cfg, batch: int, seq_len: int, device, model_axis: int = 1,
     return c
 
 
-def _decode_mha(q, k, v, k_pos, pos, window: int, logit_cap: float):
-    """q: (B, 1, H, hd); k/v: (B, Sc, KVv, hd); k_pos: (B, Sc) -> (B, 1, H, hd)."""
+def _decode_mha(k, v, q, k_pos, pos, window: int, logit_cap: float):
+    """k/v: (B, Sc, KVv, hd); q: (B, 1, H, hd); k_pos: (B, Sc) -> (B, 1, H, hd)."""
     H, hd = q.shape[2], q.shape[3]
     k, v = _expand_kv(k, v, H)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (hd ** -0.5)
@@ -247,7 +269,51 @@ def _decode_mha(q, k, v, k_pos, pos, window: int, logit_cap: float):
     return out.to(q.dtype)
 
 
-def attention_decode(p: Attention, x, cache: dict, pos, cfg, cross: bool = False):
+def _decode_attend(q, k, v, k_pos, pos, window: int, logit_cap: float, shd: Sharder):
+    """``_decode_mha``; over a cache sharded on batch and KV heads only, on
+    each rank's block (``Sharder.local``: decode attention is local over
+    them) rather than through DTensor's products, whose merged (batch,
+    head) dimensions the redistribute planner is slow over."""
+    if Sharder.shards(k, 1, 3):
+        return _decode_mha(k, v, q, k_pos, pos, window, logit_cap)
+    return shd.local(_decode_mha, (k, v, q, k_pos, pos), ((0, 2),) * 3 + ((0,),) * 2,
+                     window, logit_cap)
+
+
+def _ring_write(cache: dict, k, v, pos) -> None:
+    """In place: each sequence's new k, v (B, 1, KVv, hd) and position
+    into its ring slot ``pos % Sc``.  A sharded cache is written on each
+    rank's block (its sequences, its KV heads and, where "kv_seq" is
+    sharded, its range of slots), as the reference's partitioned
+    ``.at[].set``."""
+    ck, cv, kp = cache["k"], cache["v"], cache["k_pos"]
+    sc, first = ck.shape[1], 0
+    if isinstance(ck, DTensor):
+        mesh, pl = ck.device_mesh, ck.placements
+        k, v = (Sharder.like(t, ck, (0, 2, 3)).to_local() for t in (k, v))
+        pos = Sharder.like(pos, ck, (0,)).to_local()
+        block = 0  # this rank's block of slots, the mesh dims nested in order
+        for i, q in enumerate(pl):
+            if isinstance(q, Shard) and q.dim == 1:
+                block = block * mesh.size(i) + mesh.get_local_rank(i)
+        ck, cv, kp = ck.to_local(), cv.to_local(), kp.to_local()
+        first = block * ck.shape[1]
+    slot = (pos % sc).long() - first
+    bidx = torch.arange(pos.shape[0], device=pos.device)
+    k, v, new_pos = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype), pos.to(torch.int32)
+    if ck.shape[1] < sc:  # a slot on another rank keeps what this rank holds there
+        mine = (slot >= 0) & (slot < ck.shape[1])
+        slot = slot.clamp(0, ck.shape[1] - 1)
+        k = torch.where(mine[:, None, None], k, ck[bidx, slot])
+        v = torch.where(mine[:, None, None], v, cv[bidx, slot])
+        new_pos = torch.where(mine, new_pos, kp[bidx, slot])
+    ck[bidx, slot] = k
+    cv[bidx, slot] = v
+    kp[bidx, slot] = new_pos
+
+
+def attention_decode(p: Attention, x, cache: dict, pos, cfg, cross: bool = False,
+                     shd: Sharder = NO_SHD):
     """x: (B, 1, D) current token activations; pos: (B,) int positions.
     Self-attention writes the token's k/v into its ring slot (in place);
     ``cross`` attends every entry of the cache's ``ck``/``cv`` and leaves
@@ -259,31 +325,27 @@ def attention_decode(p: Attention, x, cache: dict, pos, cfg, cross: bool = False
         ck = cache["ck"]
         every = torch.zeros(ck.shape[:2], dtype=torch.int32, device=x.device)
         late = torch.full((x.shape[0],), 2 ** 30, dtype=torch.int32, device=x.device)
-        out = _decode_mha(q, ck, cache["cv"], every, late, 0, cfg.attn_logit_softcap)
+        out = _decode_attend(q, ck, cache["cv"], every, late, 0, cfg.attn_logit_softcap, shd)
         return _out_proj(p, out.to(dt)), cache
     k, v = _project_kv(p, x, cfg, pos[:, None], use_rope)
     kvv = cache["k"].shape[2]
     rep = kvv // cfg.n_kv_p
     if rep > 1:
         k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
-    sc = cache["k"].shape[1]
-    slot = (pos % sc).long()  # ring-buffer write
-    bidx = torch.arange(x.shape[0], device=x.device)
-    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["k_pos"][bidx, slot] = pos.to(torch.int32)
-    out = _decode_mha(q, cache["k"], cache["v"], cache["k_pos"], pos, _window(cfg),
-                      cfg.attn_logit_softcap)
+    _ring_write(cache, k, v, pos)
+    out = _decode_attend(q, cache["k"], cache["v"], cache["k_pos"], pos, _window(cfg),
+                         cfg.attn_logit_softcap, shd)
     return _out_proj(p, out.to(dt)), cache
 
 
 def prefill_cache_entries(p: Attention, x, cfg, positions, seq_len: int,
-                          model_axis: int = 1) -> dict:
+                          shd: Sharder = NO_SHD) -> dict:
     """The k/v cache contents of a full-sequence pass (prefill): the last
-    `cache_len` entries, in ring layout."""
+    `cache_len` entries, in ring layout, over the virtual KV heads of
+    ``shd``'s model axis."""
     dt = getattr(torch, cfg.dtype)
-    k, v = _repeat_virtual(*_project_kv(p, x, cfg, positions, cfg.pos_kind == "rope"), cfg,
-                           model_axis)
+    k, v = _repeat_virtual(*_project_kv(p, x, cfg, positions, cfg.pos_kind == "rope", shd),
+                           cfg, shd.model_axis)
     sc = cache_len(cfg, seq_len)
     B, S = x.shape[0], x.shape[1]
     if sc < S:
@@ -294,18 +356,20 @@ def prefill_cache_entries(p: Attention, x, cfg, positions, seq_len: int,
         v_r = torch.roll(v[:, S - sc:], shift, dims=1)
         pos_r = torch.roll(positions[S - sc:], shift)
         kpos = pos_r[None].expand(B, sc).to(torch.int32).contiguous()
-        return {"k": k_r.to(dt), "v": v_r.to(dt), "k_pos": kpos}
+        return {"k": k_r.to(dt), "v": v_r.to(dt), "k_pos": Sharder.like(kpos, k, (0,))}
     pad = sc - S
     kk = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
     vv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     kpos = torch.nn.functional.pad(positions.to(torch.int32), (0, pad), value=-1)
-    return {"k": kk.to(dt), "v": vv.to(dt), "k_pos": kpos[None].expand(B, sc).contiguous()}
+    return {"k": kk.to(dt), "v": vv.to(dt),
+            "k_pos": Sharder.like(kpos[None].expand(B, sc).contiguous(), k, (0,))}
 
 
-def cross_cache_entries(p: Attention, enc_out, cfg) -> dict:
+def cross_cache_entries(p: Attention, enc_out, cfg, shd: Sharder = NO_SHD) -> dict:
     """A cross-attention layer's decode cache: the encoder output's keys
     and values (no rope), repeated to the virtual KV heads and cast to
     ``cfg.dtype``: ``{"ck", "cv"}``, each (B, S_enc, KVv, hd)."""
     dt = getattr(torch, cfg.dtype)
-    ck, cv = _repeat_virtual(*_project_kv(p, enc_out, cfg, None, False), cfg)
+    ck, cv = _repeat_virtual(*_project_kv(p, enc_out, cfg, None, False, shd), cfg,
+                             shd.model_axis)
     return {"ck": ck.to(dt), "cv": cv.to(dt)}

@@ -23,7 +23,11 @@ from torch import nn
 
 class Init:
     """Parameter factory on one device; ``generator=None`` leaves the
-    values uninitialised (for parameters that are loaded next)."""
+    values uninitialised (for parameters that are loaded next).  Every
+    parameter is tagged with the reference's logical ``axes`` (its
+    ``ParamLeaf.axes``), one name or ``None`` a dimension, as the
+    attribute ``axes``: ``sharding.param_axes`` collects them and
+    ``sharding.Sharder`` places the parameter by them."""
 
     def __init__(self, generator: Optional[torch.Generator], param_dtype: torch.dtype,
                  device: torch.device):
@@ -31,40 +35,46 @@ class Init:
         self.param_dtype = param_dtype
         self.device = device
 
-    def _param(self, value: torch.Tensor) -> nn.Parameter:
-        return nn.Parameter(value, requires_grad=False)
+    def _param(self, value: torch.Tensor, axes) -> nn.Parameter:
+        axes = tuple(axes)
+        if len(axes) != value.dim():
+            raise ValueError(f"axes {axes} for a parameter of shape {tuple(value.shape)}")
+        p = nn.Parameter(value, requires_grad=False)
+        p.axes = axes
+        return p
 
-    def _empty(self, shape, dtype) -> nn.Parameter:
-        return self._param(torch.empty(tuple(shape), dtype=dtype, device=self.device))
+    def _empty(self, shape, axes, dtype) -> nn.Parameter:
+        return self._param(torch.empty(tuple(shape), dtype=dtype, device=self.device), axes)
 
-    def normal(self, shape, scale: float = 0.02, dtype=None) -> nn.Parameter:
+    def normal(self, shape, axes, scale: float = 0.02, dtype=None) -> nn.Parameter:
         dtype = dtype or self.param_dtype
         if self.generator is None:
-            return self._empty(shape, dtype)
+            return self._empty(shape, axes, dtype)
         v = torch.randn(tuple(shape), generator=self.generator, dtype=torch.float32,
                         device=self.device)
-        return self._param((v * scale).to(dtype))
+        return self._param((v * scale).to(dtype), axes)
 
-    def fan_in(self, shape, fan_axes=None, dtype=None) -> nn.Parameter:
+    def fan_in(self, shape, axes, fan_axes=None, dtype=None) -> nn.Parameter:
         """Normal with 1/sqrt(fan_in) scale (fan = product of the
         ``fan_axes`` dims, default all but the last)."""
         if fan_axes is None:
             fan = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
         else:
             fan = math.prod(shape[i] for i in fan_axes)
-        return self.normal(shape, scale=1.0 / math.sqrt(max(fan, 1)), dtype=dtype)
+        return self.normal(shape, axes, scale=1.0 / math.sqrt(max(fan, 1)), dtype=dtype)
 
-    def const(self, shape, fill, dtype=None) -> nn.Parameter:
+    def const(self, shape, axes, fill, dtype=None) -> nn.Parameter:
         dtype = dtype or self.param_dtype
         if self.generator is None:
-            return self._empty(shape, dtype)
-        return self._param(torch.full(tuple(shape), fill, dtype=dtype, device=self.device))
+            return self._empty(shape, axes, dtype)
+        return self._param(torch.full(tuple(shape), fill, dtype=dtype, device=self.device),
+                           axes)
 
-    def zeros(self, shape, dtype=None) -> nn.Parameter:
-        return self.const(shape, 0, dtype)
+    def zeros(self, shape, axes, dtype=None) -> nn.Parameter:
+        return self.const(shape, axes, 0, dtype)
 
-    def ones(self, shape, dtype=None) -> nn.Parameter:
-        return self.const(shape, 1, dtype)
+    def ones(self, shape, axes, dtype=None) -> nn.Parameter:
+        return self.const(shape, axes, 1, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -109,11 +119,11 @@ class Norm(nn.Module):
         width = width or cfg.d_model
         self.eps = cfg.norm_eps
         if cfg.norm_kind == "rmsnorm":
-            self.scale = ini.zeros((width,))
+            self.scale = ini.zeros((width,), ("act_embed",))
             self.bias = None
         else:
-            self.scale = ini.ones((width,))
-            self.bias = ini.zeros((width,))
+            self.scale = ini.ones((width,), ("act_embed",))
+            self.bias = ini.zeros((width,), ("act_embed",))
 
     def forward(self, x):
         if self.bias is None:

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.common import Init
+from repro_torch.models.sharding import NO_SHD, Sharder
 
 GROUP = 1024  # tokens per routing group (keeps the dispatch tensors bounded)
 
@@ -36,10 +37,10 @@ class MoE(nn.Module):
     def __init__(self, ini: Init, cfg):
         super().__init__()
         D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-        self.router = ini.fan_in((D, E))
-        self.w_gate = ini.fan_in((E, D, Fd), fan_axes=(1,))
-        self.w_up = ini.fan_in((E, D, Fd), fan_axes=(1,))
-        self.w_down = ini.fan_in((E, Fd, D), fan_axes=(1,))
+        self.router = ini.fan_in((D, E), ("embed", "act_expert"))
+        self.w_gate = ini.fan_in((E, D, Fd), ("expert", "embed", "mlp"), fan_axes=(1,))
+        self.w_up = ini.fan_in((E, D, Fd), ("expert", "embed", "mlp"), fan_axes=(1,))
+        self.w_down = ini.fan_in((E, Fd, D), ("expert", "mlp", "embed"), fan_axes=(1,))
 
 
 def _route(p: MoE, x2d, cfg):
@@ -128,23 +129,37 @@ def _scatter_group(x_g, w_g, idx_g, pos_g, p: MoE, cfg, dt):
 _DISPATCH = {"einsum": _einsum_group, "scatter": _scatter_group}
 
 
-def moe_forward(p: MoE, x, cfg, impl: str = None):
+def moe_forward(p: MoE, x, cfg, impl: str = None, shd: Sharder = NO_SHD):
     """x: (B, S, D) -> ((B, S, D), the load-balancing loss, a float32
-    scalar).  ``impl``: "einsum" (default) or "scatter"."""
+    scalar).  ``impl``: "einsum" (default) or "scatter".  On a mesh the
+    sequence is gathered before (B, S) merge, as the reference's: a
+    reshape across two differently sharded dims would replicate all."""
     impl = impl or getattr(cfg, "moe_dispatch", "einsum")
     if impl not in _DISPATCH:
         raise ValueError(f"MoE dispatch {impl!r}: the port has {sorted(_DISPATCH)}")
     dt = getattr(torch, cfg.dtype)
+    x = shd.act(x, "ffn_batch", None, "ffn_embed")  # a no-op under the default rules
     B, S, D = x.shape
     T = B * S
     g = min(GROUP, T)
     if T % g:
         raise ValueError(f"MoE routes {T} tokens in groups of {g}: {T} is no multiple "
                          f"of {g} (the reference's reshape fails there too)")
-    x2d = x.reshape(T, D)
+    x2d = shd.act(x, "batch", None, None).reshape(T, D)
+    # a no-op forward; backward, it brings the gradient of x2d to these
+    # placements before the reshape's backward: the router's and the
+    # dispatch's gradients otherwise meet sharded over every mesh axis,
+    # where torch's DTensor reshape back to (B, S, D) takes a wrong local
+    # shape (2 x 16 x 16 mesh)
+    x2d = shd.act(x2d, "batch", None)
     weights, top_idx, aux = _route(p, x2d, cfg)
     G, k = T // g, cfg.top_k
     idx = top_idx.view(G, g, k)
-    out = _DISPATCH[impl](x2d.view(G, g, D), weights.view(G, g, k), idx,
-                          _positions_in_expert(idx, cfg.n_experts), p, cfg, dt)
+    xg = shd.act(x2d.view(G, g, D), "batch", None, "act_embed")
+    # each group's slots on the rank that holds the group whole (the
+    # reference's vmap over groups): DTensor's cumsum over a sharded
+    # dimension scans each rank's shard alone
+    pos = shd.local(_positions_in_expert, (idx,), (0,), cfg.n_experts)
+    out = _DISPATCH[impl](xg, weights.view(G, g, k), idx, pos, p, cfg, dt)
+    out = shd.act(out, "batch", None, "act_embed")
     return out.reshape(B, S, D), aux

@@ -14,9 +14,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.models.common import Init
+from repro_torch.models.sharding import NO_SHD, Sharder
 
 RGLRU_C = 8.0
 
@@ -27,17 +29,17 @@ class RecBlock(nn.Module):
         D, W, H = cfg.d_model, cfg.resolved_rnn_width, cfg.n_heads
         bw = W // H  # block width of the block-diagonal gates
         self.n_heads = H
-        self.w_x = ini.fan_in((D, W))
-        self.w_gate = ini.fan_in((D, W))
-        self.conv_w = ini.normal((cfg.conv_width, W), scale=0.1)
-        self.conv_b = ini.zeros((W,))
-        self.gate_a_w = ini.fan_in((H, bw, bw), fan_axes=(1,))
-        self.gate_a_b = ini.zeros((H, bw))
-        self.gate_x_w = ini.fan_in((H, bw, bw), fan_axes=(1,))
-        self.gate_x_b = ini.zeros((H, bw))
+        self.w_x = ini.fan_in((D, W), ("embed", "rnn"))
+        self.w_gate = ini.fan_in((D, W), ("embed", "rnn"))
+        self.conv_w = ini.normal((cfg.conv_width, W), ("conv", "rnn"), scale=0.1)
+        self.conv_b = ini.zeros((W,), ("rnn",))
+        self.gate_a_w = ini.fan_in((H, bw, bw), ("heads", None, "rnn"), fan_axes=(1,))
+        self.gate_a_b = ini.zeros((H, bw), ("heads", "rnn"))
+        self.gate_x_w = ini.fan_in((H, bw, bw), ("heads", None, "rnn"), fan_axes=(1,))
+        self.gate_x_b = ini.zeros((H, bw), ("heads", "rnn"))
         # Lambda, so a = sigmoid(Lambda) starts near 0.9..0.999
-        self.lam = ini.const((W,), 4.0)
-        self.w_out = ini.fan_in((W, D))
+        self.lam = ini.const((W,), ("rnn",), 4.0)
+        self.w_out = ini.fan_in((W, D), ("rnn", "embed"))
 
 
 def causal_conv1d(x, w, b):
@@ -46,10 +48,21 @@ def causal_conv1d(x, w, b):
     cw, S = w.shape[0], x.shape[1]
     y = torch.zeros_like(x)
     for j in range(cw):
-        shift = cw - 1 - j
-        xj = F.pad(x, (0, 0, shift, 0))[:, :S]
-        y = y + xj * w[j].to(x.dtype)
+        y = y + _shifted(x, cw - 1 - j) * w[j].to(x.dtype)
     return y + b.to(x.dtype)
+
+
+def _shifted(x, shift: int):
+    """x delayed by ``shift`` steps along the sequence, zeros first.  A
+    DTensor's by concatenation: DTensor's ``constant_pad_nd`` backward in
+    torch 2.11 returns the padded shape."""
+    S = x.shape[1]
+    if not isinstance(x, DTensor):
+        return F.pad(x, (0, 0, shift, 0))[:, :S]
+    if shift == 0:
+        return x
+    shift = min(shift, S)
+    return torch.cat([torch.zeros_like(x[:, :shift]), x[:, :S - shift]], dim=1)
 
 
 def _block_diag(u, w, b, H):
@@ -74,12 +87,19 @@ def _gate(p: RecBlock, x):
     return F.gelu(x @ p.w_gate.to(x.dtype), approximate="tanh")
 
 
-def rec_forward(p: RecBlock, x):
+def _scan(log_a, b, shd: Sharder):
+    """The ``rglru_scan`` kernel; on a mesh on each rank's block of batch
+    and width ("rnn"), the sequence whole."""
+    return shd.local(rg_ops.rglru, (log_a, b), (0, 2))
+
+
+def rec_forward(p: RecBlock, x, shd: Sharder = NO_SHD):
     """Full-sequence recurrent mixer. x: (B, S, D) -> (B, S, D)."""
     dt = x.dtype
-    u = causal_conv1d(x @ p.w_x.to(dt), p.conv_w, p.conv_b)
-    h = rg_ops.rglru(*_rglru_coeffs(p, u)).to(dt)
-    return (h * _gate(p, x)) @ p.w_out.to(dt)
+    u = shd.act(x @ p.w_x.to(dt), "batch", "seq", "rnn")
+    u = causal_conv1d(u, p.conv_w, p.conv_b)
+    h = shd.act(_scan(*_rglru_coeffs(p, u), shd).to(dt), "batch", "seq", "rnn")
+    return shd.act((h * _gate(p, x)) @ p.w_out.to(dt), "batch", "res_seq", "act_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -106,10 +126,10 @@ def rec_decode(p: RecBlock, x, cache):
     return y, {"h": h, "conv": hist[:, 1:]}
 
 
-def rec_prefill_cache(p: RecBlock, x, conv_width: int):
+def rec_prefill_cache(p: RecBlock, x, conv_width: int, shd: Sharder = NO_SHD):
     """Run the mixer's recurrence over the full sequence; return the final
     recurrent state and the conv tail for decode."""
     dt = x.dtype
     u = x @ p.w_x.to(dt)
-    h = rg_ops.rglru(*_rglru_coeffs(p, causal_conv1d(u, p.conv_w, p.conv_b)))
+    h = _scan(*_rglru_coeffs(p, causal_conv1d(u, p.conv_w, p.conv_b)), shd)
     return {"h": h[:, -1].clone(), "conv": u[:, -(conv_width - 1):].clone()}

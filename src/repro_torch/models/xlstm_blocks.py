@@ -27,9 +27,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import Init, group_norm_heads
 from repro_torch.models.recurrent import causal_conv1d
+from repro_torch.models.sharding import NO_SHD, Sharder, flat_matmul
 
 F32 = torch.float32
 
@@ -45,18 +47,24 @@ class MLSTMBlock(nn.Module):
         D, H = cfg.d_model, cfg.n_heads
         Fd = 2 * D  # projection factor 2
         dk = Fd // H
-        self.up = ini.fan_in((D, 2, Fd), fan_axes=(0,))
-        self.conv_w = ini.normal((cfg.conv_width, Fd), scale=0.1)
-        self.conv_b = ini.zeros((Fd,))
-        self.wq = ini.fan_in((Fd, H, dk), fan_axes=(0,))
-        self.wk = ini.fan_in((Fd, H, dk), fan_axes=(0,))
-        self.wv = ini.fan_in((Fd, H, dk), fan_axes=(0,))
-        self.w_i = ini.fan_in((Fd, H))
-        self.b_i = ini.zeros((H,))
-        self.w_f = ini.fan_in((Fd, H))
-        self.b_f = ini.const((H,), 3.0)  # open forget gates at init
-        self.gn_scale = ini.ones((H, dk))
-        self.down = ini.fan_in((Fd, D))
+        self.up = ini.fan_in((D, 2, Fd), ("embed", None, "mlp"), fan_axes=(0,))
+        self.conv_w = ini.normal((cfg.conv_width, Fd), ("conv", "mlp"), scale=0.1)
+        self.conv_b = ini.zeros((Fd,), ("mlp",))
+        self.wq = ini.fan_in((Fd, H, dk), ("mlp", "heads", "head_dim"), fan_axes=(0,))
+        self.wk = ini.fan_in((Fd, H, dk), ("mlp", "heads", "head_dim"), fan_axes=(0,))
+        self.wv = ini.fan_in((Fd, H, dk), ("mlp", "heads", "head_dim"), fan_axes=(0,))
+        self.w_i = ini.fan_in((Fd, H), ("mlp", "heads"))
+        self.b_i = ini.zeros((H,), ("heads",))
+        self.w_f = ini.fan_in((Fd, H), ("mlp", "heads"))
+        self.b_f = ini.const((H,), ("heads",), 3.0)  # open forget gates at init
+        self.gn_scale = ini.ones((H, dk), ("heads", "head_dim"))
+        self.down = ini.fan_in((Fd, D), ("mlp", "embed"))
+
+
+def _logsigmoid(x):
+    """log(sigmoid(x)); a DTensor's as -softplus(-x), whose backward
+    DTensor shards (it has no rule for ``log_sigmoid_backward``)."""
+    return -F.softplus(-x) if isinstance(x, DTensor) else F.logsigmoid(x)
 
 
 def mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk: int, state=None):
@@ -70,7 +78,7 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk: int, state=None):
     kT = k.transpose(1, 2).to(F32)
     vT = v.transpose(1, 2).to(F32)
     ig = i_pre.transpose(1, 2).to(F32)  # (B, H, S)
-    lg = F.logsigmoid(f_pre.transpose(1, 2).to(F32))
+    lg = _logsigmoid(f_pre.transpose(1, 2).to(F32))
     if state is None:
         C = qT.new_zeros((B, H, d, d))
         n = qT.new_zeros((B, H, d))
@@ -110,7 +118,7 @@ def mlstm_step(q, k, v, i_pre, f_pre, state):
     d = q.shape[-1]
     qf = q.to(F32) * d ** -0.5
     kf, vf = k.to(F32), v.to(F32)
-    lf = F.logsigmoid(f_pre.to(F32))
+    lf = _logsigmoid(f_pre.to(F32))
     ii = i_pre.to(F32)
     m2 = torch.maximum(lf + m, ii)
     fw = torch.exp(lf + m - m2)
@@ -125,7 +133,7 @@ def mlstm_step(q, k, v, i_pre, f_pre, state):
 
 def _heads(x, w):
     """x: (B, S, F) times w: (F, H, d) -> (B, S, H, d)."""
-    return (x @ w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
+    return flat_matmul(x, w.to(x.dtype))
 
 
 def _mlstm_qkvif(p: MLSTMBlock, x_in, conv_state=None):
@@ -149,7 +157,7 @@ def _mlstm_qkvif(p: MLSTMBlock, x_in, conv_state=None):
 
 def _mlstm_up(p: MLSTMBlock, x):
     """(z, x_in), each (B, S, F): the up projection's two halves."""
-    up = (x @ p.up.to(x.dtype).flatten(1)).unflatten(-1, p.up.shape[1:])
+    up = flat_matmul(x, p.up.to(x.dtype))
     return up[:, :, 0], up[:, :, 1]
 
 
@@ -159,15 +167,16 @@ def _mlstm_out(p: MLSTMBlock, h, z, dt):
     return (h * F.silu(z)) @ p.down.to(dt)
 
 
-def mlstm_forward(p: MLSTMBlock, x, cfg, with_cache: bool = False):
+def mlstm_forward(p: MLSTMBlock, x, cfg, with_cache: bool = False, shd: Sharder = NO_SHD):
     """Full-sequence mLSTM mixer. x: (B, S, D) -> (B, S, D), and with
     ``with_cache`` the decode cache {C, n, m, conv}: the final state and
     the last cw-1 pre-conv inputs."""
     dt = getattr(torch, cfg.dtype)
     z, x_in = _mlstm_up(p, x)
+    x_in = shd.act(x_in, "batch", "seq", "act_mlp")
     q, k, v, i_pre, f_pre, _ = _mlstm_qkvif(p, x_in)
     h, (C, n, m) = mlstm_chunkwise(q, k, v, i_pre, f_pre, cfg.mlstm_chunk)
-    y = _mlstm_out(p, h, z, dt)
+    y = shd.act(_mlstm_out(p, h, z, dt), "batch", "res_seq", "act_embed")
     if not with_cache:
         return y
     return y, {"C": C, "n": n, "m": m, "conv": x_in[:, -(cfg.conv_width - 1):].clone()}
@@ -209,12 +218,14 @@ class SLSTMBlock(nn.Module):
         D, H = cfg.d_model, cfg.n_heads
         dh = D // H
         Fs = _slstm_ffn_dim(D)
-        self.w = ini.fan_in((D, 4, H, dh), fan_axes=(0,))
-        self.r = ini.fan_in((4, H, dh, dh), fan_axes=(2,))
-        self.b = ini.zeros((4, H, dh))
-        self.gn_scale = ini.ones((H, dh))
-        self.ffn_up = ini.fan_in((D, 2, Fs), fan_axes=(0,))
-        self.ffn_down = ini.fan_in((Fs, D))
+        self.w = ini.fan_in((D, 4, H, dh), ("embed", None, "heads", "head_dim"),
+                            fan_axes=(0,))
+        self.r = ini.fan_in((4, H, dh, dh), (None, "heads", None, "head_dim"),
+                            fan_axes=(2,))
+        self.b = ini.zeros((4, H, dh), (None, "heads", "head_dim"))
+        self.gn_scale = ini.ones((H, dh), ("heads", "head_dim"))
+        self.ffn_up = ini.fan_in((D, 2, Fs), ("embed", None, "mlp"), fan_axes=(0,))
+        self.ffn_down = ini.fan_in((Fs, D), ("mlp", "embed"))
 
 
 def slstm_cell(wx, state, r):
@@ -225,7 +236,7 @@ def slstm_cell(wx, state, r):
     z = torch.tanh(pre[:, 0])
     i_pre, f_pre = pre[:, 1], pre[:, 2]
     o = torch.sigmoid(pre[:, 3])
-    lf = F.logsigmoid(f_pre)
+    lf = _logsigmoid(f_pre)
     m2 = torch.maximum(lf + m, i_pre)
     iw = torch.exp(i_pre - m2)
     fw = torch.exp(lf + m - m2)
@@ -238,7 +249,7 @@ def slstm_sequence(p: SLSTMBlock, x, state):
     """x: (B, S, D); state (c, n, h, m).  Steps through S; returns (h (B,
     S, H, dh) in x's type, the final state)."""
     dt = x.dtype
-    wx = (x @ p.w.to(dt).flatten(1)).unflatten(-1, p.w.shape[1:]) + p.b.to(dt)
+    wx = flat_matmul(x, p.w.to(dt)) + p.b.to(dt)
     hs = []
     for t in range(x.shape[1]):
         state = slstm_cell(wx[:, t], state, p.r)
@@ -252,25 +263,26 @@ def init_slstm_state(cfg, batch: int, device) -> dict:
     return {k: torch.zeros((batch, H, dh), dtype=F32, device=device) for k in "cnhm"}
 
 
-def _slstm_out(p: SLSTMBlock, hs, cfg):
+def _slstm_out(p: SLSTMBlock, hs, cfg, shd: Sharder = NO_SHD):
     """Group-norm heads, gated FFN."""
     dt = getattr(torch, cfg.dtype)
     B, S = hs.shape[:2]
     h = group_norm_heads(hs.to(dt), p.gn_scale).reshape(B, S, -1)
-    up = (h @ p.ffn_up.to(dt).flatten(1)).unflatten(-1, p.ffn_up.shape[1:])
+    up = flat_matmul(h, p.ffn_up.to(dt))
     g, u = up[:, :, 0], up[:, :, 1]
-    return (F.gelu(g, approximate="tanh") * u) @ p.ffn_down.to(dt)
+    y = (F.gelu(g, approximate="tanh") * u) @ p.ffn_down.to(dt)
+    return shd.act(y, "batch", "res_seq", "act_embed")
 
 
-def _slstm_run(p: SLSTMBlock, x, cache: dict, cfg):
+def _slstm_run(p: SLSTMBlock, x, cache: dict, cfg, shd: Sharder = NO_SHD):
     hs, state = slstm_sequence(p, x, tuple(cache[k] for k in "cnhm"))
-    return _slstm_out(p, hs, cfg), dict(zip("cnhm", state))
+    return _slstm_out(p, hs, cfg, shd), dict(zip("cnhm", state))
 
 
-def slstm_forward(p: SLSTMBlock, x, cfg, with_cache: bool = False):
+def slstm_forward(p: SLSTMBlock, x, cfg, with_cache: bool = False, shd: Sharder = NO_SHD):
     """Full-sequence sLSTM block from a zero state. x: (B, S, D) -> (B, S,
     D), and with ``with_cache`` the final state {c, n, h, m}."""
-    y, cache = _slstm_run(p, x, init_slstm_state(cfg, x.shape[0], x.device), cfg)
+    y, cache = _slstm_run(p, x, init_slstm_state(cfg, x.shape[0], x.device), cfg, shd)
     return (y, cache) if with_cache else y
 
 

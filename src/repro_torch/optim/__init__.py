@@ -1,7 +1,6 @@
-"""Optimizers of the port (``repro.optim``): AdamW.  The int8
-error-feedback gradient compression (``repro.optim.compression``) comes
-with multi-card work (ROADMAP Queue 1, item 5)."""
-from repro_torch.optim import adamw
+"""Optimizers of the port (``repro.optim``): AdamW and the int8
+error-feedback gradient compression of the cross-pod all-reduce."""
+from repro_torch.optim import adamw, compression
 from repro_torch.optim.adamw import AdamWConfig
 
-__all__ = ["adamw", "AdamWConfig"]
+__all__ = ["adamw", "compression", "AdamWConfig"]

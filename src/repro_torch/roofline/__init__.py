@@ -1,8 +1,12 @@
-"""The roofline of one step on one H100 (port of ``repro.roofline``): the
-analytic FLOP and byte model (``analytic``, a copy of the reference's)
-and the three-term roofline at the card's data-sheet peaks.  The
-collective parse of ``repro.roofline.hlo_analysis`` waits for the
-multi-card slice, where a sharded step has collectives to count."""
+"""The roofline of one step on H100s (port of ``repro.roofline``): the
+analytic FLOP and byte model (``analytic``, a copy of the reference's),
+the three-term roofline at the card's data-sheet peaks, and the
+collectives a sharded step issues (``collectives``, the counterpart of
+``repro.roofline.hlo_analysis``)."""
+from repro_torch.roofline.collectives import (
+    CollectiveRecorder,
+    summarize_collectives,
+)
 from repro_torch.roofline.roofline import (
     FP32_FLOPS,
     HBM_BW,
@@ -16,6 +20,8 @@ from repro_torch.roofline.roofline import (
 )
 
 __all__ = [
+    "CollectiveRecorder",
+    "summarize_collectives",
     "Roofline",
     "compute_roofline",
     "model_flops",

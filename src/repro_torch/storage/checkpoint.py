@@ -24,8 +24,10 @@ A tensor is copied to the host; a bfloat16 leaf, which numpy has no type
 for, is stored as its raw 16-bit words under dtype ``"bfloat16"``.
 ``restore(example_tree=...)`` puts each leaf back where the example's
 leaf lives: a tensor of its type on its device, or a numpy array.
-Restoring onto another mesh (``restore_sharded``) comes with multi-card
-work (ROADMAP Queue 1, item 5).
+``restore_sharded`` places each leaf on a DeviceMesh as a DTensor, each
+rank taking its own chunk of the restored leaf, so nothing is broadcast;
+the mesh may differ in size from the writer's (the reference's elastic
+restore, which ``launch.elastic`` plans for).
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Placement
 
+from repro_torch.models.sharding import Sharder, place
 from repro_torch.storage.kvstore import DeltaKey, DeltaStore
 
 BLOCK = 1 << 20  # 1 MiB per node-block
@@ -97,7 +101,7 @@ def _host(leaf) -> np.ndarray:
     the trainer updates its parameters in place, and the next save's XOR
     needs this save's bits."""
     if torch.is_tensor(leaf):
-        t = leaf.detach().to("cpu", copy=True)
+        t = Sharder.whole(leaf).detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
         return t.numpy()
@@ -124,6 +128,21 @@ def _from_raw(raw: np.ndarray, meta: Dict, like=None):
     if torch.is_tensor(like):
         return t.to(device=like.device, dtype=like.dtype)
     return t
+
+
+def _placement_leaves(tree) -> list:
+    """The placement lists of a shardings tree, in ``tree_flatten``'s
+    order (a list or tuple of placements is a leaf)."""
+    if isinstance(tree, (list, tuple)) and tree and all(isinstance(p, Placement)
+                                                        for p in tree):
+        return [list(tree)]
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _placement_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [p for c in tree for p in _placement_leaves(c)]
+    if tree is None:
+        return []
+    raise TypeError(f"not a placement list: {tree!r}")
 
 
 class CheckpointStore:
@@ -186,8 +205,8 @@ class CheckpointStore:
         device leaf's copy waits for the device) and writes in a worker
         thread, so the train loop is not blocked on storage."""
         leaves, treedef = tree_flatten(tree)
-        host = [l.detach().to("cpu", copy=True) if torch.is_tensor(l) else np.asarray(l).copy()
-                for l in leaves]
+        host = [Sharder.whole(l).detach().to("cpu", copy=True) if torch.is_tensor(l)
+                else np.asarray(l).copy() for l in leaves]
         return self._pool.submit(self.save, step, tree_unflatten(treedef, host))
 
     # ------------------------------------------------------------------
@@ -238,6 +257,22 @@ class CheckpointStore:
         leaves = [_from_raw(raw, lm, like)
                   for raw, lm, like in zip(raws, target["leaves"], likes)]
         return tree_unflatten(treedef, leaves), target["step"]
+
+    def restore_sharded(self, mesh, shardings_tree, step: Optional[int] = None, c: int = 4,
+                        example_tree=None):
+        """Elastic restore: ``restore``, then each leaf placed on ``mesh``
+        by its placements in ``shardings_tree`` (the values tree's layout,
+        a list of placements, one a mesh dimension, at each leaf; e.g.
+        ``Sharder.tree_shardings``).  Each rank keeps only its own chunk
+        (``DTensor.from_local``): nothing is broadcast, and the mesh may
+        have another size than the writer's."""
+        tree, got_step = self.restore(step, c=c, example_tree=example_tree)
+        leaves, treedef = tree_flatten(tree)
+        placements = _placement_leaves(shardings_tree)
+        if len(placements) != len(leaves):
+            raise ValueError(f"{len(placements)} placements for {len(leaves)} leaves")
+        return tree_unflatten(treedef, [place(v, mesh, p)
+                                        for v, p in zip(leaves, placements)]), got_step
 
     def storage_cost(self) -> Dict[str, int]:
         return {

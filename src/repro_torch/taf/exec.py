@@ -1,4 +1,5 @@
-"""Device TAF execution: ``style="kernel"`` node computes (paper §5.2).
+"""Distributed TAF execution: ``style="kernel"`` node computes (paper
+§5.2: Spark workers; the reference's ``shard_map`` over a "workers" axis).
 
 Two pieces:
 
@@ -7,16 +8,20 @@ Two pieces:
 * ``sharded_node_compute`` — a user kernel, a function of torch tensors
   ``(present (n,), attrs (n, K), ev_t (n, E), ev_kind (n, E), ev_val
   (n, E)) -> (n,)`` or ``(n, T)``, run over the operand's padded event
-  arrays on the caller's device.  One device is one worker: the node
-  axis is padded to a multiple of the worker count (pad rows carry
-  ``present = -1``) and the result is cut back to ``len(son)``.
-  Sharding over several cards (``mesh``) is a later step (ROADMAP).
+  arrays.  Without a mesh one device is one worker.  With a 1-D
+  ``("workers",)`` DeviceMesh (``make_worker_mesh``, over a running
+  process group; one rank a card, or a CPU process under gloo) the node
+  axis is padded to a multiple of the W workers (pad rows carry
+  ``present = -1``), each rank holds its own block of the five operands
+  as ``Shard(0)`` DTensors, the kernel runs on each rank's block
+  (``local_map``, the counterpart of ``shard_map``) and the result is
+  gathered whole on every rank.  The result is cut back to ``len(son)``.
 
-The padded operand is uploaded once per (operand, device) and kept in a
-weakref-guarded LRU, so re-running a kernel, or another kernel, over the
-same operand uploads nothing (``STATS``).  Timestamps stay int64 on the
-device: the pad slots' int64-max already sorts after every real
-timestamp, so the kernels need no re-sentinel.
+The padded operand is uploaded once per (operand, workers, device, rank)
+and kept in a weakref-guarded LRU, so re-running a kernel, or another
+kernel, over the same operand uploads nothing (``STATS``).  Timestamps
+stay int64 on the device: the pad slots' int64-max already sorts after
+every real timestamp, so the kernels need no re-sentinel.
 """
 from __future__ import annotations
 
@@ -26,9 +31,14 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch import device as dev
 from repro_torch.core.events import EDGE_ADD, EDGE_DEL
+from repro_torch.models.sharding import place
 from repro_torch.taf import replay
 from repro_torch.taf.son import SoN, SoTS, build_son
 
@@ -38,16 +48,30 @@ STATS = {
 }
 
 # device-resident padded operands for style="kernel" computes, keyed
-# (operand_key(son), worker count, device) and weakref-guarded like the
-# replay LRU: re-running a kernel (or a different kernel) over the same
-# operand re-transfers nothing
+# (operand_key(son), worker count, device, rank) and weakref-guarded like
+# the replay LRU: re-running a kernel (or a different kernel) over the
+# same operand re-transfers nothing
 _OPERAND_CACHE = replay.ReplayCache(maxsize=16)
 
-WORKERS = 1  # one card; the node-axis padding rule is kept for the mesh
+WORKERS = 1  # workers without a mesh: one device
 
 
 def clear_device_caches() -> None:
     _OPERAND_CACHE.clear()
+
+
+def make_worker_mesh():
+    """A 1-D ``("workers",)`` DeviceMesh over every rank of the running
+    process group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "make_worker_mesh needs a running process group: start one first, e.g. "
+            "torch.distributed.init_process_group('nccl' on cards or 'gloo' on CPUs, "
+            "init_method='file:///path/to/store', rank=r, world_size=W), one process "
+            "a worker")
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh((dist.get_world_size(),), ("workers",))
 
 
 def parallel_fetch(tgi, t0: int, t1: int, c: int = 1) -> SoN:
@@ -72,31 +96,45 @@ def _pad_to_multiple(x: np.ndarray, mult: int, fill):
 def sharded_node_compute(son: SoN, kernel: Callable, mesh=None,
                          extra_args: Dict = None, *, device=None) -> np.ndarray:
     """Run a vectorized per-node kernel over the operand on ``device``
-    (None: the CUDA card).  ``mesh=None`` is one worker on that device;
-    any other mesh raises until multi-card sharding lands.  ``extra_args``
-    keeps the reference's parameter slot and is ignored, as there."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded_node_compute runs one worker on one device; sharding "
-            "over a mesh of cards is a later step, see ROADMAP")
+    (None: the CUDA card): with ``mesh=None`` as one worker, with a
+    ``("workers",)`` DeviceMesh on each rank's block of nodes, the whole
+    result on every rank.  ``device`` must be of the mesh's device type.
+    ``extra_args`` keeps the reference's parameter slot and is ignored,
+    as there."""
     device = dev.resolve(device)
-    okey = (replay.operand_key(son), WORKERS, str(device))
+    if mesh is None:
+        W, rank = WORKERS, 0
+    else:
+        if not (isinstance(mesh, DeviceMesh) and mesh.mesh_dim_names == ("workers",)):
+            raise ValueError(f"sharded_node_compute wants a 1-D ('workers',) DeviceMesh "
+                             f"(make_worker_mesh), got {mesh!r}")
+        if device.type != mesh.device_type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the device is {device}")
+        W, rank = mesh.size(), mesh.get_local_rank()
+    okey = (replay.operand_key(son), W, str(device), rank)
     operands = _OPERAND_CACHE.get(okey, owner=son)
     if operands is None:
         STATS["operand_transfers"] += 1
         pads = son.padded_events()
-        operands = tuple(torch.as_tensor(a, device=device) for a in (
-            _pad_to_multiple(son.init_present.astype(np.int32), WORKERS, -1),
-            _pad_to_multiple(son.init_attrs, WORKERS, -1),
-            _pad_to_multiple(pads["t"], WORKERS, np.iinfo(np.int64).max),
-            _pad_to_multiple(pads["kind"], WORKERS, -1),
-            _pad_to_multiple(pads["val"], WORKERS, -1),
-        ))
+        padded = (_pad_to_multiple(son.init_present.astype(np.int32), W, -1),
+                  _pad_to_multiple(son.init_attrs, W, -1),
+                  _pad_to_multiple(pads["t"], W, np.iinfo(np.int64).max),
+                  _pad_to_multiple(pads["kind"], W, -1),
+                  _pad_to_multiple(pads["val"], W, -1))
+        if mesh is None:
+            operands = tuple(torch.as_tensor(a, device=device) for a in padded)
+        else:  # this rank's block only: nothing is broadcast
+            operands = tuple(place(a, mesh, [Shard(0)], device) for a in padded)
         _OPERAND_CACHE.put(okey, operands, owner=son)
     else:
         STATS["operand_cache_hits"] += 1
-    out = kernel(*operands)
+    if mesh is None:
+        out = kernel(*operands)
+    else:
+        out = local_map(kernel, out_placements=[Shard(0)], in_placements=([Shard(0)],) * 5,
+                        device_mesh=mesh)(*operands).full_tensor()
     return out.cpu().numpy()[: len(son)]
+
 
 
 def degree_at_kernel(t: int):

@@ -129,8 +129,8 @@ class Compute:
 
     style: "static" (one timepoint) | "temporal" (O(N·T) re-eval) |
     "delta" (O(N+T) incremental; needs f_delta) | "kernel" (vectorized
-    torch kernel run on the executor's device; ``mesh`` must be None
-    until sharding over several cards lands).
+    torch kernel run on the executor's device, or over the ranks of a
+    ``("workers",)`` DeviceMesh, ``mesh``: see ``taf/exec.py``).
     """
 
     fn: Callable

@@ -344,8 +344,9 @@ class TemporalQuery:
                      t: Optional[int] = None, mesh=None,
                      label: Optional[str] = None) -> "TemporalQuery":
         """Operators 4-6 (style = static | temporal | delta) or a torch
-        kernel over the padded operand on the query's device (style =
-        kernel, ``taf/exec.py``)."""
+        kernel over the padded operand on the query's device, sharded over
+        the workers of ``mesh`` when one is given (style = kernel,
+        ``taf/exec.py``)."""
         return self._append(Compute(fn=fn, style=style, f_delta=f_delta,
                                     points=points, t=t, mesh=mesh, label=label))
 

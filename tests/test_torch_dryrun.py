@@ -162,10 +162,26 @@ def test_run_cell_writes_its_record(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--multi-pod", "--both-meshes"])
-def test_meshes_wait_for_the_multi_card_slice(flag, monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "qwen3-1.7b", flag])
-    with pytest.raises(NotImplementedError, match="multi-card slice"):
+def test_meshes_wait_for_the_multi_card_slice(flag, monkeypatch, tmp_path):
+    """The mesh flags write one record a mesh (``--both-meshes`` from a
+    child process each); a cell the arch does not support is a SKIP
+    record and starts no group.  The sharded dry runs themselves are
+    tested in test_torch_collectives.py."""
+    monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "qwen3-1.7b", "--shape", "long_500k",
+                                      "--out", str(tmp_path), flag])
+    if flag == "--both-meshes":
+        with pytest.raises(SystemExit) as done:
+            dryrun.main()
+        assert done.value.code == 0
+        tags = ["singlepod", "multipod"]
+    else:
         dryrun.main()
+        tags = ["multipod"]
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        f"qwen3-1.7b__long_500k__{t}.json" for t in tags)
+    for t in tags:
+        rec = json.loads((tmp_path / f"qwen3-1.7b__long_500k__{t}.json").read_text())
+        assert rec["status"] == "SKIP" and rec["multi_pod"] == (t == "multipod")
 
 
 def test_chip_smoke_roofline_phase(capsys, monkeypatch):
@@ -182,12 +198,18 @@ def test_chip_smoke_roofline_phase(capsys, monkeypatch):
     finally:
         chip_smoke.stop(procs)
     paths = chip_smoke.roofline_paths(reduced=True)
-    assert set(recs) == set(paths) and len(paths) == 11
+    assert set(recs) == set(paths) | {"mesh"} and len(paths) == 11
     timed = {name: dict(seconds=0.5, peak_memory_bytes=None) for name in paths}
     monkeypatch.setattr(chip_smoke, "TIMED", timed)
     chip_smoke.roofline_phase(recs, reduced=True)
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    *lines, mesh = lines
     assert [ln["path"] for ln in lines] == list(paths)
+    # the third child: a training step on a fake group's mesh, counted per
+    # device, with the collectives DTensor issued and their roofline term
+    assert mesh["path"] == "mesh " + " ".join(chip_smoke.MESH_DRY_RUN) and mesh["cpu_counts"]
+    assert mesh["n_chips"] == 4 and mesh["collectives"]["wire_bytes"] > 0
+    assert mesh["collective_s"] == mesh["collectives"]["wire_bytes"] / roofline.NVLINK_BW
     for ln in lines:
         assert ln["mfu"] == ln["model_flops"] / (0.5 * roofline.PEAK_FLOPS)
         assert ln["roofline_share"] == ln["step_time_s"] / 0.5

@@ -166,8 +166,10 @@ def test_fourth_positional_argument_is_the_references_extra_args():
 
 
 def test_mesh_other_than_none_raises():
+    """A mesh other than None must be a ("workers",) DeviceMesh; the
+    sharded path itself runs in tests/test_torch_distributed.py."""
     _, sots = _pair(32, N=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="workers"):
         taf_exec.sharded_degree_at(sots, 3, mesh=object(), device="cpu")
 
 

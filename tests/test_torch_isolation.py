@@ -57,7 +57,32 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+# the multi-card modules, and the ranks of tests/test_torch_distributed.py
+MULTI_CARD = ["repro_torch.launch.mesh", "repro_torch.models.sharding",
+              "repro_torch.optim.compression", "repro_torch.roofline.collectives",
+              "repro_torch.launch.dryrun", "repro_torch.taf.exec",
+              "repro_torch.storage.checkpoint", "torch_dist_workers"]
+
+
+def test_multi_card_modules_load_no_jax_and_no_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MULTI_CARD!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))\n"
+        "import torch.distributed as dist\n"
+        "print(dist.is_initialized())\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(SRC), str(ROOT / "tests")]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    # no jax, no repro, and no module starts a process group on import
+    assert out.stdout.split() == ["[]", "False"]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_workers.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     bad = {r for r in _imported_roots(path) if r in ("jax", "jaxlib", "repro")}

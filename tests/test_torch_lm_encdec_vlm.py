@@ -283,8 +283,8 @@ def test_port_serve_keeps_the_image_prefix(monkeypatch):
     seen = []
     decode_step = lm.LM.decode_step
 
-    def recording(self, caches, tokens, pos):
-        out = decode_step(self, caches, tokens, pos)
+    def recording(self, caches, tokens, pos, *shd):
+        out = decode_step(self, caches, tokens, pos, *shd)
         seen.append(out[1])
         return out
 

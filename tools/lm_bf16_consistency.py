@@ -95,8 +95,8 @@ def consistency(model, tokens) -> float:
 _REC_PREFILL_CACHE = recurrent.rec_prefill_cache
 
 
-def _conv_lost(p, x, conv_width):
-    cache = _REC_PREFILL_CACHE(p, x, conv_width)
+def _conv_lost(p, x, conv_width, *a):
+    cache = _REC_PREFILL_CACHE(p, x, conv_width, *a)
     cache["conv"] = torch.zeros_like(cache["conv"])
     return cache
 
@@ -221,8 +221,8 @@ def _first_kv_lost(*a, **k):
     return cache
 
 
-def _decode_ffn_dropped(p, x, cfg, impl=None):
-    y, aux = _MOE_FORWARD(p, x, cfg, impl)
+def _decode_ffn_dropped(p, x, cfg, impl=None, **kw):
+    y, aux = _MOE_FORWARD(p, x, cfg, impl, **kw)
     return (torch.zeros_like(y) if x.shape[1] == 1 else y), aux
 
 
@@ -288,8 +288,8 @@ def _mix_fault(kind, key):
     it returns zeroed."""
     module, forward, decode = lm._MIX[kind]
 
-    def faulty(p, x, cfg, with_cache=False):
-        out = forward(p, x, cfg, with_cache)
+    def faulty(p, x, cfg, with_cache=False, **kw):
+        out = forward(p, x, cfg, with_cache, **kw)
         if with_cache:
             out[1][key] = torch.zeros_like(out[1][key])
         return out
