@@ -129,7 +129,10 @@ one JSON line; any failure exits non-zero:
    between chunks dropped; on the train steps' inputs the carry and the
    float32 delta faults are only reported), and the forward's row
    log-sum-exp is held
-   against ``lse_ref``;
+   against ``lse_ref``; the RG-LRU backward also at W = 4094 (its
+   per-lane load path), each case naming the load path it took and
+   failing if the kernel left its scratch non-zero, its row carrying each
+   path's registers, shared memory and blocks an SM;
    device times from
    CUDA events, beside the plain version's, the fastest of the PyTorch
    calls that compute the same function (for attention: SDPA with the
@@ -1859,7 +1862,7 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False):
         # g = dh + e, e = a g, a = exp(log_a), dlog_a = g a h_prev: ~5 a step;
         # log_a, h, dh read and dlog_a, db written once
         ops, nbytes, peak = 5 * args[0].numel(), 5 * args[0].numel() * 4, FP32_OPS_PER_S
-        shape = dict(B=B, S=S, W=W, chunk=rg_ops.CHUNK)
+        shape = dict(B=B, S=S, W=W, chunk=rg_ops.CHUNK, load_path=rg_ops.bwd_load_path(*args))
     else:
         kern, plain, tol = rg_ops.rglru, rg_ref.rglru_ref, RGLRU_TOL
         B, S, W = args[0].shape
@@ -2046,6 +2049,8 @@ def decomposition_check(name, tag, args, kw, got) -> dict:
         lims = [scaled(BWD_TOL[torch.float32], w) for w in want]
         if not all(torch.allclose(g, w, **lim) for g, w, lim in zip(got, want, lims)):
             fail(f"{name} ({tag}) outside {lims} of rglru_bwd_chunked_ref: {err}")
+        if rg_ops._bwd_scratch(args[0]).any():  # the next launch would read stale carries
+            fail(f"{name} ({tag}): the kernel left its scratch non-zero")
         return dict(chunked_ref_max_abs_err=err)
     if name == "flash_attention.bwd":
         # the forward kernel's log-sum-exp the backward was given
@@ -2265,7 +2270,9 @@ def headline_inputs(dev):
            attention_bwd(1, 2, 200, 64, 0, bf16, holes=True),
            rglru_bwd(1, 4097, 4096), rglru_bwd(2, 33, 64), rglru_bwd(1, 130, 96),
            # drawn last, so the cases above keep their inputs
-           attention_bwd(1, 4, 2048, 256, 1024, bf16)]
+           attention_bwd(1, 4, 2048, 256, 1024, bf16),
+           # W % 4 != 0: the RG-LRU backward's per-lane load path at the ragged shape
+           rglru_bwd(1, 4097, 4094)]
     # the float32 forward at the backward's headline shape, from a generator
     # of its own, so every case above keeps its inputs
     gf = torch.Generator(device=dev).manual_seed(29)
@@ -2513,6 +2520,8 @@ def main() -> int:
         stop(procs)
 
     # 4. each kernel against its plain version
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+
     rows = []
     headlines = headline_inputs(dev)
     for kname, (source, replaces) in SOURCES.items():
@@ -2536,6 +2545,8 @@ def main() -> int:
                          library_ms=row["library_ms"], library_call=row["library_call"],
                          shape=row["shape"],
                          headline=headline))
+        if kname == "rglru_scan.bwd":  # each load path's registers, shared memory, residency
+            rows[-1]["resources"] = rg_ops.bwd_resources()
     overlay_edges(dev)
     emit(phase="done", seconds=time.perf_counter() - start)
     print(json.dumps({"kernels": rows}), flush=True)

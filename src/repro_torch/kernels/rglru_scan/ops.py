@@ -11,7 +11,9 @@ the backward scan.
 On the card a call that needs a gradient goes through ``RGLRUScan``, an
 ``autograd.Function`` whose forward is the scan kernel (it saves
 ``log_a`` and ``h``) and whose backward is the reverse scan kernel
-(``rglru_bwd``): the gradient never leaves the kernels.
+(``rglru_bwd``): the gradient never leaves the kernels.  The backward
+stages its inputs in shared memory by one of two load paths, which the
+launcher picks from W and the pointers (``bwd_load_path``).
 """
 from __future__ import annotations
 
@@ -24,11 +26,15 @@ from repro_torch.kernels.rglru_scan import ref
 
 LAUNCHES = {"rglru": 0, "bwd": 0}
 PLAIN_DEVICES = ("cpu", "meta")  # devices the plain versions serve
-CHUNK = 64  # steps a block of the kernel scans (rglru_scan.cu's CHUNK)
+CHUNK = 64  # steps a block of either kernel scans (rglru_scan.cu's CHUNK and BWD_CHUNK)
+
+BWD_PATHS = ("lane", "bulk")  # the backward's load paths, by rglru_bwd_path's answer
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"rglru_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
-               "rglru_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]}
+               "rglru_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+               "rglru_bwd_path": [_P, _P, _P, _I],
+               "rglru_bwd_resources": [_I, ctypes.POINTER(ctypes.c_int)]}
 
 
 def rglru(log_a, b):
@@ -64,6 +70,24 @@ def _scratch(t):
     return torch.empty(B * W + 1, dtype=torch.int64, device=t.device)
 
 
+# (device, stream) -> the backward's scratch, which every launch leaves zero
+_BWD_SCRATCH = {}
+
+
+def _bwd_scratch(t):
+    """The backward's carries and ticket for ``t``'s shape on the current
+    stream: zeroed once, when allocated, and kept, since the kernel leaves
+    them zero.  One a stream, so no two launches share one at once; two
+    threads on one stream may race to replace it, which only changes
+    which zeroed scratch is kept, as their launches run in stream order."""
+    B, _, W = t.shape
+    key = (t.device, torch.cuda.current_stream(t.device).cuda_stream)
+    scratch = _BWD_SCRATCH.get(key)
+    if scratch is None or scratch.numel() < B * W + 1:
+        scratch = _BWD_SCRATCH[key] = torch.zeros(B * W + 1, dtype=torch.int64, device=t.device)
+    return scratch
+
+
 def _scan(log_a, b):
     log_a, b = _check("rglru", log_a, b)
     B, S, W = log_a.shape
@@ -88,15 +112,39 @@ def rglru_bwd(log_a, h, dh):
     log_a, h, dh = _check("rglru_bwd", log_a, h, dh)
     B, S, W = log_a.shape
     dlog_a, db = torch.empty_like(log_a), torch.empty_like(log_a)
-    scratch = _scratch(log_a)
     lib = _build.load("rglru_scan", _SIGNATURES)
     with torch.cuda.device(log_a.device):
+        scratch = _bwd_scratch(log_a)
         err = lib.rglru_bwd_launch(log_a.data_ptr(), h.data_ptr(), dh.data_ptr(),
                                    dlog_a.data_ptr(), db.data_ptr(), scratch.data_ptr(),
                                    B, S, W, _build.stream_of(log_a))
     _build.check(lib, err, "rglru_scan.rglru_bwd")
     LAUNCHES["bwd"] += 1
     return dlog_a, db
+
+
+def bwd_load_path(log_a, h, dh):
+    """How ``rglru_bwd`` stages these CUDA tensors in shared memory:
+    ``"bulk"`` (a ``cp.async.bulk`` copy a row of a tile: W % 4 == 0 and
+    16-byte aligned data) or ``"lane"`` (a 4-byte ``cp.async`` a lane)."""
+    log_a, h, dh = _check("rglru_bwd", log_a, h, dh)
+    lib = _build.load("rglru_scan", _SIGNATURES)
+    return BWD_PATHS[lib.rglru_bwd_path(log_a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+                                        log_a.shape[2])]
+
+
+def bwd_resources():
+    """The backward kernel's resources on the current CUDA device, for
+    each load path: registers a thread, static and dynamic shared memory
+    a block, resident blocks an SM and local (spilled) bytes a thread."""
+    lib = _build.load("rglru_scan", _SIGNATURES)
+    out = {}
+    for bulk, path in enumerate(BWD_PATHS):
+        got = (ctypes.c_int * 5)()
+        _build.check(lib, lib.rglru_bwd_resources(bulk, got), "rglru_scan.rglru_bwd_resources")
+        out[path] = dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                              "blocks_per_sm", "local_bytes"), got))
+    return out
 
 
 class RGLRUScan(torch.autograd.Function):

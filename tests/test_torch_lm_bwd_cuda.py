@@ -241,15 +241,40 @@ def _scan_inputs(card, B, S, W, seed):
     return log_a.to(card), b.to(card), dh.to(card)
 
 
-@pytest.mark.parametrize("B,S,W", [(2, 1, 33), (1, 63, 33), (2, 64, 17), (1, 65, 65),
-                                   (1, 3 * 64 + 5, 31), (2, 4096, 256), (1, 4097, 130)])
-def test_rglru_backward_kernel(card, B, S, W):
+def _offset(t):
+    """``t`` copied into a contiguous view one element into its storage:
+    every row 4 bytes off a 16-byte boundary."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return view.copy_(t)
+
+
+@pytest.mark.parametrize("B,S,W,offset", [
+    pytest.param(B, S, W, offset, id=f"{B}-{S}-{W}" + ("-offset" if offset else ""))
+    for B, S, W, offset in [
+        # W % 4 != 0: the per-lane load path
+        (2, 1, 33, False), (1, 63, 33, False), (2, 64, 17, False), (1, 65, 65, False),
+        (1, 3 * 64 + 5, 31, False), (1, 4097, 130, False),
+        # W % 4 == 0: the bulk path; S = 1, S < CHUNK, S % CHUNK != 0, a tile of
+        # 4 lanes (W = 4, and 132's last), the training path's shape
+        (1, 1, 128, False), (1, 63, 64, False), (2, 70, 4, False), (1, 3 * 64 + 5, 132, False),
+        (2, 4096, 256, False), (2, 4096, 4096, False),
+        # W % 4 == 0 at an odd storage offset: the per-lane path
+        (1, 130, 96, True)]])
+def test_rglru_backward_kernel(card, B, S, W, offset):
+    """Both load paths, chosen from W and the pointers, within TOL of the
+    plain version and of the chunked emulation, the same bits twice, and
+    the carries' scratch, kept from call to call, left zero."""
     log_a, b, dh = _scan_inputs(card, B, S, W, seed=S + W)
     h = rg_ops.rglru(log_a, b)
+    if offset:
+        log_a, h, dh = (_offset(t) for t in (log_a, h, dh))
+    assert rg_ops.bwd_load_path(log_a, h, dh) == ("bulk" if W % 4 == 0 and not offset
+                                                  else "lane")
     launches = dict(rg_ops.LAUNCHES)
     got = rg_ops.rglru_bwd(log_a, h, dh)
     torch.cuda.synchronize()
     assert rg_ops.LAUNCHES["bwd"] == launches["bwd"] + 1
+    assert not rg_ops._bwd_scratch(log_a).any()  # left zero for the next launch
     for want in (rg_ref.rglru_bwd_ref(log_a, h, dh),
                  rg_ref.rglru_bwd_chunked_ref(log_a, h, dh, rg_ops.CHUNK)):
         for name, a, w in zip(("dlog_a", "db"), got, want):

@@ -156,13 +156,19 @@ def test_rglru_bwd_ref_matches_jax_vjp(B, S, W):
     np.testing.assert_allclose(got[1].numpy(), db, **BWD_TOL)
 
 
-@pytest.mark.parametrize("S,chunk", [(2 * CHUNK + 7, CHUNK), (CHUNK, CHUNK), (45, 7), (45, 1)])
-def test_rglru_bwd_chunked_decomposition_matches_jax_vjp(S, chunk):
+@pytest.mark.parametrize("S,chunk,W", [
+    pytest.param(S, chunk, W, id=f"{S}-{chunk}" + (f"-{W}" if W != 17 else ""))
+    for S, chunk, W in [(2 * CHUNK + 7, CHUNK, 17), (CHUNK, CHUNK, 17), (45, 7, 17),
+                        (45, 1, 17), (1, CHUNK, 4), (CHUNK - 1, CHUNK, 33),
+                        (3 * CHUNK + 5, CHUNK, 132)]])
+def test_rglru_bwd_chunked_decomposition_matches_jax_vjp(S, chunk, W):
     """The backward kernel's decomposition (chunk aggregates walking back,
     a carry from the last chunk to the first, a rescan from each carry),
-    with a ragged last chunk, against the reference's gradients."""
-    log_a, b = _inputs(S + chunk, 2, S, 17, spread=1.0)
-    dh = np.random.RandomState(chunk).randn(2, S, 17).astype(np.float32)
+    with a ragged last chunk, against the reference's gradients; at the
+    kernel's chunk also S = 1, S < chunk, and widths whose last lane tile
+    is partial (W = 4, 33, 132 against the kernel's 64 lanes a block)."""
+    log_a, b = _inputs(S + chunk, 2, S, W, spread=1.0)
+    dh = np.random.RandomState(chunk).randn(2, S, W).astype(np.float32)
     h, dla, db = _ref_vjp(log_a, b, dh)
     got = ref.rglru_bwd_chunked_ref(torch.from_numpy(log_a), torch.from_numpy(h),
                                     torch.from_numpy(dh), chunk)
