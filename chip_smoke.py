@@ -74,9 +74,22 @@ one JSON line; any failure exits non-zero:
    serve prefill must launch ``flash_attention`` 12 and ``rglru_scan`` 52
    times, the training run 6, 3 (backward), 24 and 12 (backward), the
    other serving paths ``flash_attention`` once an attention layer, once
-   more a cross-attention layer and once an encoder layer.  Last, the
+   more a cross-attention layer and once an encoder layer.  Then the
+   examples (phase 3h): ``examples/quickstart_torch.py`` and
+   ``examples/temporal_analytics_torch.py`` at their reference sizes and
+   the quickstart at 200,000 events, each on the card and on the CPU in
+   this process, every result and printed line equal (floats within
+   1e-5); ``examples/train_lm_torch.py`` at its reference settings for
+   the reduced ``qwen3-1.7b``, ``qwen2-7b``, ``granite-3-8b`` and
+   ``minitron-8b`` (card against CPU within 1e-4, the resumed step's
+   loss bit for bit, failovers, the attention kernels and their backward
+   launched), and at full width (``qwen3-1.7b``, 28 layers, batch 8 of
+   1,024-token walks, 6 steps, a 20.6 GB save, the crash, the restore:
+   seconds a step, peak memory, save and restore seconds, every step-0
+   gradient finite and non-zero, the resumed loss bit for bit; its
+   attention inputs go to phase 4).  Last, the
    roofline of every timed path (each serving path's prefill and decode
-   step, the training step): its step dry-run on meta tensors at the same
+   step, the training steps): its step dry-run on meta tensors at the same
    depth, batch and length (``repro_torch.launch.dryrun.dry_run``, in two
    child processes of this script started before phase 3, ``--dry-runs``),
    and a third child, ``MESH_DRY_RUN`` (``recurrentgemma-9b train_4k``)
@@ -1413,6 +1426,225 @@ def multi_card_phase(device, degree):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3h: the examples
+# ---------------------------------------------------------------------------
+
+# the graph examples' floats, card against CPU: the fused plans' float32
+# (tests/test_torch_compile.py's tolerance; the host's float64 values are
+# the same code on the same host)
+EXAMPLE_FLOAT_ATOL = 1e-5
+# the quickstart again at the graph cell's scale
+EXAMPLE_EVENTS = 200_000
+# train_lm at its reference settings (reduced, 24 steps, the crash at step 16)
+EXAMPLE_TRAIN_ARCHS = ("qwen3-1.7b", "qwen2-7b", "granite-3-8b", "minitron-8b")
+# and qwen3-1.7b as its config file has it (28 layers, d_model 2048, 16
+# heads of 128 over 8 KV heads, qk-norm, d_ff 6144, vocab 151,936 tied,
+# 1.72 B parameters): f32 masters, bf16 activations, remat "full"; batch 8
+# of 1,024-token walks, a save after step 3, the crash at step 4, the resume
+EXAMPLE_FULL = dict(arch="qwen3-1.7b", batch=8, seq=1024, steps=6, reduced=False)
+EXAMPLE_FULL_PATH = "example train_lm"
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` and the lines it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue().splitlines()
+
+
+def differences(card, cpu, path: str = "") -> list:
+    """Where the card's example result differs from the CPU's: integers,
+    strings, node ids and snapshots (``present``, ``attrs``, ``edge_key``)
+    equal, floats within EXAMPLE_FLOAT_ATOL."""
+    if isinstance(cpu, dict):
+        if set(card) != set(cpu):
+            return [path]
+        return [d for k in cpu for d in differences(card[k], cpu[k], f"{path}.{k}")]
+    if isinstance(cpu, (list, tuple)):
+        if len(card) != len(cpu):
+            return [path]
+        return [d for i, (a, b) in enumerate(zip(card, cpu))
+                for d in differences(a, b, f"{path}[{i}]")]
+    if hasattr(cpu, "edge_key"):
+        same = all(np.array_equal(getattr(card, f), getattr(cpu, f))
+                   for f in ("present", "attrs", "edge_key"))
+        return [] if same else [path]
+    if isinstance(cpu, (float, np.floating)) or (isinstance(cpu, np.ndarray)
+                                                 and cpu.dtype.kind == "f"):
+        same = (np.shape(card) == np.shape(cpu)
+                and np.allclose(card, cpu, atol=EXAMPLE_FLOAT_ATOL, rtol=0))
+        return [] if same else [path]
+    if isinstance(cpu, np.ndarray):
+        return [] if np.array_equal(card, cpu) else [path]
+    return [] if card == cpu else [path]
+
+
+def graph_examples(device, n_events: int = EXAMPLE_EVENTS) -> None:
+    """``quickstart_torch`` and ``temporal_analytics_torch`` at their
+    reference sizes and the quickstart at ``n_events``, each on the card
+    and on the CPU in this process: every result and every printed line
+    (but the one of wall times) the same.  No kernel: like the
+    reference's, they fold on the host (``use_kernel=False``) and run
+    their fused plans as torch programs on the device."""
+    qs, ta = load_example("quickstart_torch"), load_example("temporal_analytics_torch")
+    for what, fn, kw in (("quickstart", qs.main, {}),
+                         ("temporal_analytics", ta.main, {}),
+                         (f"quickstart n_events={n_events}", qs.main, {"n_events": n_events})):
+        t0 = time.perf_counter()
+        card, lines = quiet(fn, device, **kw)
+        t1 = time.perf_counter()
+        cpu, cpu_lines = quiet(fn, "cpu", **kw)
+        t2 = time.perf_counter()
+        diffs = differences(card, cpu)
+        untimed = [[x for x in ls if not x.startswith("label-count")]
+                   for ls in (lines, cpu_lines)]
+        if untimed[0] != untimed[1]:
+            diffs.append("printed lines")
+        emit(phase="examples", check=what, card_seconds=t1 - t0, cpu_seconds=t2 - t1,
+             printed=lines, differences=diffs)
+        if diffs:
+            fail(f"example {what}: the card's results differ from the CPU's at {diffs}")
+
+
+def _resumed_pair(out) -> tuple:
+    """The two losses of the step the example ran again after its crash."""
+    i = out["steps"].index(out["crash_at"])
+    j = out["steps"].index(out["crash_at"], i + 1)
+    return out["losses"][i], out["losses"][j]
+
+
+def train_examples(device) -> dict:
+    """``train_lm_torch`` at its reference settings for each of
+    EXAMPLE_TRAIN_ARCHS (reduced, float32, so the float32 attention kernel
+    and its backward run), on the card and on the CPU from the same
+    weights: losses within TRAIN_CARD_VS_CPU_RTOL, the resumed step's loss
+    bit for bit its first run's, failovers, and the example's own check
+    that the loss fell.  Returns each arch's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    tl = load_example("train_lm_torch")
+    by_arch = {}
+    for arch in EXAMPLE_TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        state = lm.init(cfg, seed=0, device="cpu", max_seq=4 * 64).state_dict()
+        read = _train_kernels(None, "")
+        t0 = time.perf_counter()
+        try:
+            card, lines = quiet(tl.main, device, arch=arch,
+                                params={k: v.clone() for k, v in state.items()})
+            launches = read()
+            t1 = time.perf_counter()
+            cpu, _ = quiet(tl.main, "cpu", arch=arch,
+                           params={k: v.clone() for k, v in state.items()})
+        except AssertionError as e:
+            fail(f"example train_lm {arch}: {e}")
+        t2 = time.perf_counter()
+        losses, host = np.asarray(card["losses"]), np.asarray(cpu["losses"])
+        rel = float((np.abs(losses - host) / np.abs(host)).max())
+        first, again = _resumed_pair(card)
+        emit(phase="examples", check="train_lm reduced", arch=arch, layers=card["n_layers"],
+             d_model=card["d_model"], steps=card["steps"], losses=card["losses"],
+             cpu_losses=cpu["losses"], card_vs_cpu_max_rel_diff=rel,
+             resumed_step=card["crash_at"], resumed_losses=[first, again],
+             saved_steps=card["saved_steps"], failovers=card["failovers"],
+             checkpoint_bytes=card["bytes_written"], launches=launches,
+             card_seconds=t1 - t0, cpu_seconds=t2 - t1, printed=lines)
+        if not rel <= TRAIN_CARD_VS_CPU_RTOL or card["steps"] != cpu["steps"]:
+            fail(f"example train_lm {arch}: card vs CPU losses differ by {rel} (relative)")
+        if first != again:
+            fail(f"example train_lm {arch}: the resumed step's loss {again} is not {first}")
+        if not card["failovers"] > 0:
+            fail(f"example train_lm {arch}: no failover after node 1 was killed")
+        if device.type == "cuda" and not (launches["flash_attention"] > 0
+                                          and launches["flash_attention.bwd"] > 0):
+            fail(f"example train_lm {arch}: launched {launches}")
+        by_arch[arch] = launches
+    return by_arch
+
+
+def full_width_example(device, recorder=None, reduced: bool = False) -> dict:
+    """``train_lm_torch`` with EXAMPLE_FULL (``reduced``: the CPU
+    rehearsal's reduced config): seconds a step after the first, peak
+    memory, the losses, seconds to save and to restore, the attention
+    launches forward and backward.  Checks: finite losses, every
+    parameter's step-0 gradient finite and non-zero (read by wrapping
+    ``optim.adamw.update``), the resumed step's loss bit for bit its first
+    run's, failovers.  Returns the launch counts."""
+    from repro_torch.optim import adamw
+
+    tl = load_example("train_lm_torch")
+    kw = dict(EXAMPLE_FULL, reduced=reduced, **({"seq": 64} if reduced else {}))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    step0 = []
+    orig = adamw.update
+
+    def observed_update(grads, state, params, ocfg):
+        if not step0:
+            step0.append((list(grads), torch.stack([torch.linalg.vector_norm(
+                g, dtype=torch.float32) for g in grads.values()]).cpu()))
+        return orig(grads, state, params, ocfg)
+
+    read = _train_kernels(recorder, EXAMPLE_FULL_PATH)
+    adamw.update = observed_update
+    try:
+        out, lines = quiet(tl.main, device, **kw)
+    except AssertionError as e:
+        fail(f"{EXAMPLE_FULL_PATH}: {e}")
+    finally:
+        adamw.update = orig
+        if recorder is not None:
+            recorder.restore()
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    names, norms = step0[0]
+    bad = [n for n, g in zip(names, norms.tolist()) if not (math.isfinite(g) and g > 0)]
+    first, again = _resumed_pair(out)
+    emit(phase="examples", check=EXAMPLE_FULL_PATH, arch=out["arch"], reduced=reduced,
+         layers=out["n_layers"], d_model=out["d_model"], params=out["n_params"],
+         batch=kw["batch"], seq=kw["seq"], steps=out["steps"], losses=out["losses"],
+         resumed_step=out["crash_at"], resumed_losses=[first, again],
+         first_step_seconds=out["step_seconds"][0], step_seconds=out["step_seconds"][1:],
+         save_seconds=out["save_seconds"], restore_seconds=out["restore_seconds"],
+         saved_steps=out["saved_steps"], checkpoint_bytes=out["bytes_written"],
+         failovers=out["failovers"], peak_memory_bytes=peak, launches=launches,
+         step0_params_with_gradient=len(names) - len(bad),
+         step0_params_without_finite_nonzero_gradient=bad,
+         step0_grad_norm_min=float(norms.min()), step0_grad_norm_max=float(norms.max()),
+         printed=lines)
+    if not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"{EXAMPLE_FULL_PATH}: losses {out['losses']}")
+    if bad:
+        fail(f"{EXAMPLE_FULL_PATH}: parameters without a finite non-zero step-0 gradient {bad}")
+    if first != again:
+        fail(f"{EXAMPLE_FULL_PATH}: the resumed step's loss {again} is not {first}")
+    if not out["failovers"] > 0:
+        fail(f"{EXAMPLE_FULL_PATH}: no failover after node 1 was killed")
+    if device.type == "cuda" and not (launches["flash_attention"] > 0
+                                      and launches["flash_attention.bwd"] > 0):
+        fail(f"{EXAMPLE_FULL_PATH}: launched {launches}")
+    TIMED[EXAMPLE_FULL_PATH] = dict(seconds=statistics.median(out["step_seconds"][1:]),
+                                    peak_memory_bytes=peak)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 3g: the roofline of every timed path
 # ---------------------------------------------------------------------------
 
@@ -1460,6 +1692,11 @@ def roofline_paths(reduced: bool = False) -> dict:
     if reduced:
         cfg, batch, seq = get_config(LM_ARCH).reduced(), 2, 64
     paths["lm train"] = (cfg, ShapeConfig("lm train", seq, batch, "train"), 0, 4 * seq)
+    cfg, batch, seq = get_config(EXAMPLE_FULL["arch"]), EXAMPLE_FULL["batch"], EXAMPLE_FULL["seq"]
+    if reduced:
+        cfg, seq = cfg.reduced(), 64
+    paths[EXAMPLE_FULL_PATH] = (cfg, ShapeConfig(EXAMPLE_FULL_PATH, seq, batch, "train"), 0,
+                                4 * seq)
     return paths
 
 
@@ -2447,6 +2684,9 @@ def main() -> int:
             lm_train(torch.device("cpu"), reduced=True)
             lm_train_reduced(torch.device("cpu"))
             encdec_vlm_paths(torch.device("cpu"), reduced=True)
+            graph_examples(torch.device("cpu"), args.events)
+            train_examples(torch.device("cpu"))
+            full_width_example(torch.device("cpu"), reduced=True)
             roofline_phase(read_dry_runs(procs), reduced=True)
         finally:
             stop(procs)
@@ -2511,6 +2751,11 @@ def main() -> int:
         # in the allocator's segments and split the 71 GB training peak
         by_path.update(encdec_vlm_paths(dev, recorder))
         torch.cuda.empty_cache()  # whisper and phi-3-vision are gone
+        # 3h. the examples
+        graph_examples(dev)
+        by_path.update({f"example train_lm {a}": c for a, c in train_examples(dev).items()})
+        by_path[EXAMPLE_FULL_PATH] = full_width_example(dev, recorder)
+        torch.cuda.empty_cache()  # the 27.5 GB training state is gone
         missing = [k for k, v in launches.items() if v == 0]
         if missing:
             fail(f"kernels of the main path never launched: {missing}")

@@ -129,6 +129,18 @@ def _scatter_group(x_g, w_g, idx_g, pos_g, p: MoE, cfg, dt):
 _DISPATCH = {"einsum": _einsum_group, "scatter": _scatter_group}
 
 
+def routed_tokens(x, shd: Sharder = NO_SHD):
+    """x: (B, S, D) -> the tokens (B * S, D), placed by batch.  The second
+    constraint is a no-op forward; backward, it brings the tokens'
+    gradient to these placements before the reshape's backward: the
+    router's and the dispatch's gradients otherwise meet sharded over
+    every mesh axis, where DTensor's reshape back to (B, S, D) takes a
+    wrong local shape (``tests/test_torch_mesh_repairs.py``)."""
+    B, S, D = x.shape
+    x2d = shd.act(x, "batch", None, None).reshape(B * S, D)
+    return shd.act(x2d, "batch", None)
+
+
 def moe_forward(p: MoE, x, cfg, impl: str = None, shd: Sharder = NO_SHD):
     """x: (B, S, D) -> ((B, S, D), the load-balancing loss, a float32
     scalar).  ``impl``: "einsum" (default) or "scatter".  On a mesh the
@@ -145,13 +157,7 @@ def moe_forward(p: MoE, x, cfg, impl: str = None, shd: Sharder = NO_SHD):
     if T % g:
         raise ValueError(f"MoE routes {T} tokens in groups of {g}: {T} is no multiple "
                          f"of {g} (the reference's reshape fails there too)")
-    x2d = shd.act(x, "batch", None, None).reshape(T, D)
-    # a no-op forward; backward, it brings the gradient of x2d to these
-    # placements before the reshape's backward: the router's and the
-    # dispatch's gradients otherwise meet sharded over every mesh axis,
-    # where torch's DTensor reshape back to (B, S, D) takes a wrong local
-    # shape (2 x 16 x 16 mesh)
-    x2d = shd.act(x2d, "batch", None)
+    x2d = routed_tokens(x, shd)
     weights, top_idx, aux = _route(p, x2d, cfg)
     G, k = T // g, cfg.top_k
     idx = top_idx.view(G, g, k)

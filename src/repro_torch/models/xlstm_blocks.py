@@ -27,11 +27,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.common import Init, group_norm_heads
 from repro_torch.models.recurrent import causal_conv1d
-from repro_torch.models.sharding import NO_SHD, Sharder, flat_matmul
+from repro_torch.models.sharding import NO_SHD, Sharder, flat_matmul, redistributed
 
 F32 = torch.float32
 
@@ -65,6 +66,45 @@ def _logsigmoid(x):
     """log(sigmoid(x)); a DTensor's as -softplus(-x), whose backward
     DTensor shards (it has no rule for ``log_sigmoid_backward``)."""
     return -F.softplus(-x) if isinstance(x, DTensor) else F.logsigmoid(x)
+
+
+def _per_rank(fn, args, dims, out_dims, shd: Sharder):
+    """``fn(*args)`` on each rank's blocks as plain tensors (``local_map``:
+    the reference's recurrences run per device under GSPMD), or a direct
+    call without a mesh.  ``args[0]``'s shards of the dimensions ``dims[0]``
+    names (its batch and heads: the recurrences are local over both) are
+    kept, every other mesh dimension gathered; ``dims[i]`` maps those
+    dimensions of ``args[0]`` to ``args[i]``'s ({} for an argument with
+    neither), ``out_dims`` to each output's.  An argument whole on a mesh
+    dimension the work is split over gets a partial sum as its gradient
+    there (a weight every batch row uses)."""
+    ref = args[0]
+    if shd.mesh is None or not isinstance(ref, DTensor):
+        return fn(*args)
+
+    def placed(d, split=Replicate()):
+        return [Shard(d[pl.dim]) if isinstance(pl, Shard) and pl.dim in d
+                else split if isinstance(pl, Shard) and pl.dim in dims[0] else Replicate()
+                for pl in ref.placements]
+
+    ins = tuple(placed(d) for d in dims)
+    local = [redistributed(a, shd.mesh, pl) for a, pl in zip(args, ins)]
+    return local_map(fn, out_placements=tuple(placed(d) for d in out_dims), in_placements=ins,
+                     in_grad_placements=tuple(placed(d, Partial()) for d in dims),
+                     device_mesh=shd.mesh)(*local)
+
+
+def _mlstm_sequence(q, k, v, i_pre, f_pre, chunk: int, shd: Sharder = NO_SHD):
+    """``mlstm_chunkwise`` from a zero state, flat: (h, C, n, m); on a mesh
+    each rank runs its batch rows and heads (q, k, v (B, S, H, d); i, f
+    (B, S, H); C (B, H, d, d), n (B, H, d), m (B, H))."""
+    def run(*a):
+        h, state = mlstm_chunkwise(*a, chunk)
+        return (h, *state)
+
+    bh = {0: 0, 2: 2}
+    return _per_rank(run, (q, k, v, i_pre, f_pre), (bh,) * 5,
+                     (bh,) + ({0: 0, 2: 1},) * 3, shd)
 
 
 def mlstm_chunkwise(q, k, v, i_pre, f_pre, chunk: int, state=None):
@@ -161,10 +201,20 @@ def _mlstm_up(p: MLSTMBlock, x):
     return up[:, :, 0], up[:, :, 1]
 
 
-def _mlstm_out(p: MLSTMBlock, h, z, dt):
+def _merged_heads(h, scale):
+    """Group-norm heads, then (B, S, H, dh) -> (B, S, H * dh).  On a mesh
+    the merged tensor keeps its shards (a partial sum, from a norm over a
+    sharded dh, is summed): backward, this brings the gradient to those
+    placements before the merge's backward, which DTensor cannot take
+    from a gradient sharded over more ranks than there are heads (4 heads
+    on a 16-wide model axis)."""
     B, S = h.shape[:2]
-    h = group_norm_heads(h.to(dt), p.gn_scale).reshape(B, S, -1)
-    return (h * F.silu(z)) @ p.down.to(dt)
+    merged = group_norm_heads(h, scale).reshape(B, S, -1)
+    return Sharder.like(merged, merged, range(merged.dim()))
+
+
+def _mlstm_out(p: MLSTMBlock, h, z, dt):
+    return (_merged_heads(h.to(dt), p.gn_scale) * F.silu(z)) @ p.down.to(dt)
 
 
 def mlstm_forward(p: MLSTMBlock, x, cfg, with_cache: bool = False, shd: Sharder = NO_SHD):
@@ -175,7 +225,7 @@ def mlstm_forward(p: MLSTMBlock, x, cfg, with_cache: bool = False, shd: Sharder 
     z, x_in = _mlstm_up(p, x)
     x_in = shd.act(x_in, "batch", "seq", "act_mlp")
     q, k, v, i_pre, f_pre, _ = _mlstm_qkvif(p, x_in)
-    h, (C, n, m) = mlstm_chunkwise(q, k, v, i_pre, f_pre, cfg.mlstm_chunk)
+    h, C, n, m = _mlstm_sequence(q, k, v, i_pre, f_pre, cfg.mlstm_chunk, shd)
     y = shd.act(_mlstm_out(p, h, z, dt), "batch", "res_seq", "act_embed")
     if not with_cache:
         return y
@@ -245,16 +295,31 @@ def slstm_cell(wx, state, r):
     return c2, n2, o * c2 / n2.clamp_min(1e-6), m2
 
 
-def slstm_sequence(p: SLSTMBlock, x, state):
+def _slstm_steps(wx, c, n, h, m, r):
+    """The recurrence through wx's S steps from (c, n, h, m): (h (B, S, H,
+    dh) in wx's type, c, n, h, m)."""
+    state = (c, n, h, m)
+    hs = []
+    for t in range(wx.shape[1]):
+        state = slstm_cell(wx[:, t], state, r)
+        hs.append(state[2].to(wx.dtype))
+    return (torch.stack(hs, dim=1), *state)
+
+
+def slstm_sequence(p: SLSTMBlock, x, state, shd: Sharder = NO_SHD):
     """x: (B, S, D); state (c, n, h, m).  Steps through S; returns (h (B,
-    S, H, dh) in x's type, the final state)."""
+    S, H, dh) in x's type, the final state).  On a mesh each rank steps
+    through its own batch rows and heads as plain tensors (the
+    reference's ``lax.scan`` under GSPMD), its ``dh`` and sequence whole:
+    the same operations, without DTensor's dispatch at each of the ~20
+    a step."""
     dt = x.dtype
     wx = flat_matmul(x, p.w.to(dt)) + p.b.to(dt)
-    hs = []
-    for t in range(x.shape[1]):
-        state = slstm_cell(wx[:, t], state, p.r)
-        hs.append(state[2].to(dt))
-    return torch.stack(hs, dim=1), state
+    # wx (B, S, 4, H, dh), each state (B, H, dh), r (4, H, dh, dh), hs (B, S, H, dh)
+    hs, *state = _per_rank(_slstm_steps, (wx, *state, p.r),
+                           ({0: 0, 3: 3},) + ({0: 0, 3: 1},) * 4 + ({3: 1},),
+                           ({0: 0, 3: 2},) + ({0: 0, 3: 1},) * 4, shd)
+    return hs, tuple(state)
 
 
 def init_slstm_state(cfg, batch: int, device) -> dict:
@@ -266,16 +331,14 @@ def init_slstm_state(cfg, batch: int, device) -> dict:
 def _slstm_out(p: SLSTMBlock, hs, cfg, shd: Sharder = NO_SHD):
     """Group-norm heads, gated FFN."""
     dt = getattr(torch, cfg.dtype)
-    B, S = hs.shape[:2]
-    h = group_norm_heads(hs.to(dt), p.gn_scale).reshape(B, S, -1)
-    up = flat_matmul(h, p.ffn_up.to(dt))
+    up = flat_matmul(_merged_heads(hs.to(dt), p.gn_scale), p.ffn_up.to(dt))
     g, u = up[:, :, 0], up[:, :, 1]
     y = (F.gelu(g, approximate="tanh") * u) @ p.ffn_down.to(dt)
     return shd.act(y, "batch", "res_seq", "act_embed")
 
 
 def _slstm_run(p: SLSTMBlock, x, cache: dict, cfg, shd: Sharder = NO_SHD):
-    hs, state = slstm_sequence(p, x, tuple(cache[k] for k in "cnhm"))
+    hs, state = slstm_sequence(p, x, tuple(cache[k] for k in "cnhm"), shd)
     return _slstm_out(p, hs, cfg, shd), dict(zip("cnhm", state))
 
 

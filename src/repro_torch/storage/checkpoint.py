@@ -34,6 +34,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import dataclasses
 import json
+import os
 import zlib
 from typing import Any, Dict, List, Optional
 
@@ -152,6 +153,7 @@ class CheckpointStore:
         self.saves: List[Dict] = []  # manifest per save: step, kind, leaf meta
         self._prev_raw: Optional[List[np.ndarray]] = None
         self._pool = cf.ThreadPoolExecutor(max_workers=2)
+        self._blocks = cf.ThreadPoolExecutor(max_workers=os.cpu_count() or 1)
 
     # ------------------------------------------------------------------
     # Save
@@ -171,22 +173,15 @@ class CheckpointStore:
         for li, (h, dt, raw) in enumerate(zip(host, dtypes, raws)):
             payload = raw if is_snap else np.bitwise_xor(raw, self._prev_raw[li])
             blocks = _leaf_blocks(payload)
+            keys = [DeltaKey(tsid=sidx, sid=(li * 131 + bi) % self.cfg.n_shards,
+                             did=f"P:{li}", pid=bi) for bi in range(len(blocks))]
+            # the blocks compress in parallel (zlib drops the GIL) and are
+            # written in order, so the store's bytes are a serial save's
             blk_meta = []
-            for bi, blk in enumerate(blocks):
-                comp = zlib.compress(blk.tobytes(), self.cfg.compress_level)
-                crc = zlib.crc32(blk.tobytes())
-                key = DeltaKey(
-                    tsid=sidx,
-                    sid=(li * 131 + bi) % self.cfg.n_shards,
-                    did=f"P:{li}",
-                    pid=bi,
-                )
-                self.store.put(key, {
-                    "z": np.frombuffer(comp, np.uint8),
-                    "crc": np.asarray([crc], np.uint32),
-                    "n": np.asarray([len(blk)], np.int64),
-                })
-                blk_meta.append({"key": list(key), "crc": int(crc), "n": len(blk)})
+            for key, (blob, raw_bytes, crc, n) in zip(
+                    keys, self._blocks.map(self._encode_block, keys, blocks)):
+                self.store.put_encoded(key, blob, raw_bytes)
+                blk_meta.append({"key": list(key), "crc": crc, "n": n})
             leaf_meta.append({"shape": list(h.shape), "dtype": dt, "blocks": blk_meta})
         entry = {"step": int(step), "save_idx": sidx, "kind": kind,
                  "leaves": leaf_meta, "treedef": repr(treedef)}
@@ -199,6 +194,17 @@ class CheckpointStore:
             {"json": np.frombuffer(json.dumps(entry).encode(), np.uint8)},
         )
         return entry
+
+    def _encode_block(self, key: DeltaKey, blk: np.ndarray):
+        """One block's store record, encoded: (blob, raw bytes, crc, n)."""
+        crc = zlib.crc32(blk)
+        comp = zlib.compress(blk, self.cfg.compress_level)
+        blob, raw_bytes = self.store.encode_payload(key, {
+            "z": np.frombuffer(comp, np.uint8),
+            "crc": np.asarray([crc], np.uint32),
+            "n": np.asarray([len(blk)], np.int64),
+        })
+        return blob, raw_bytes, int(crc), len(blk)
 
     def save_async(self, step: int, tree):
         """Async save: copies every leaf to the host synchronously (a
@@ -214,23 +220,22 @@ class CheckpointStore:
     # ------------------------------------------------------------------
 
     def _fetch_payload(self, entry: Dict, c: int) -> List[np.ndarray]:
-        keys = []
-        for lm in entry["leaves"]:
-            for bm in lm["blocks"]:
-                keys.append(DeltaKey(*bm["key"]))
-        got = self.store.multiget(keys, c=c)
+        """Each leaf's raw bytes.  A leaf at a time: its blocks fetched
+        (``c`` clients) and inflated in parallel, so only one leaf's
+        compressed blocks are held at once."""
         out = []
-        ki = 0
         for lm in entry["leaves"]:
-            parts = []
-            for bm in lm["blocks"]:
-                rec = got[keys[ki]]
-                blk = np.frombuffer(zlib.decompress(rec["z"].tobytes()), np.uint8)
-                if zlib.crc32(blk.tobytes()) != bm["crc"] or len(blk) != bm["n"]:
+            keys = [DeltaKey(*bm["key"]) for bm in lm["blocks"]]
+            got = self.store.multiget(keys, c=c)
+
+            def block(key, bm):
+                blk = np.frombuffer(zlib.decompress(got[key]["z"]), np.uint8)
+                if zlib.crc32(blk) != bm["crc"] or len(blk) != bm["n"]:
                     raise IOError(f"checkpoint corrupt: block {bm['key']}")
-                parts.append(blk)
-                ki += 1
-            out.append(np.concatenate(parts))
+                return blk
+
+            out.append(np.concatenate(list(self._blocks.map(block, keys, lm["blocks"]))))
+            del got
         return out
 
     def restore(self, step: Optional[int] = None, c: int = 4, example_tree=None):

@@ -81,7 +81,26 @@ def test_multi_card_modules_load_no_jax_and_no_repro():
     assert out.stdout.split() == ["[]", "False"]
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+EXAMPLES = [ROOT / "examples" / f"{name}_torch.py"
+            for name in ("quickstart", "temporal_analytics", "train_lm")]
+
+
+def test_importing_the_examples_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib.util, sys\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code, *map(str, EXAMPLES)], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + EXAMPLES
                          + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_workers.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):

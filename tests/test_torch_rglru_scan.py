@@ -189,3 +189,31 @@ def test_rglru_function_plumbing_on_cpu():
     _, dla, db = _ref_vjp(log_a, b, dh)
     np.testing.assert_allclose(got[0].numpy(), dla, **BWD_TOL)
     np.testing.assert_allclose(got[1].numpy(), db, **BWD_TOL)
+
+
+def test_rglru_cpu_gradients_same_bits_under_every_thread_count():
+    """The CPU side of the card's gradient test (autograd through the
+    plain scan at B=2 S=300 W=96, ``test_torch_lm_bwd_cuda.py``) gives
+    the same bits under every intra-op thread count tried
+    (``tools/rglru_cpu_threads.py`` also tries a busy host and the card
+    tests run before it)."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    log_a = -torch.rand(2, 300, 96, generator=g) * 0.5
+    b = torch.randn(2, 300, 96, generator=g)
+    dh = torch.randn(2, 300, 96, generator=g)
+
+    def grads():
+        la, bb = log_a.clone().requires_grad_(), b.clone().requires_grad_()
+        h = ops.rglru(la, bb)
+        return [h.detach()] + list(torch.autograd.grad(h, (la, bb), dh))
+
+    default = torch.get_num_threads()
+    try:
+        first = None
+        for n in (1, 2, 3, 4, 8, default):
+            torch.set_num_threads(n)
+            got = grads()
+            first = first or got
+            assert all(torch.equal(a, f) for a, f in zip(got, first)), n
+    finally:
+        torch.set_num_threads(default)
