@@ -87,7 +87,22 @@ one JSON line; any failure exits non-zero:
    1,024-token walks, 6 steps, a 20.6 GB save, the crash, the restore:
    seconds a step, peak memory, save and restore seconds, every step-0
    gradient finite and non-zero, the resumed loss bit for bit; its
-   attention inputs go to phase 4).  Last, the
+   attention inputs go to phase 4).  Then the dense family (phase 3i):
+   ``qwen3-1.7b``, ``qwen2-7b``, ``granite-3-8b`` and ``minitron-8b``
+   whole at full width, ``serve(arch, B, 32_744, 16)`` (max_seq 32,768,
+   decode_32k's length) at B = 8 for qwen3-1.7b and 4 for the others
+   (``DENSE_BATCH``; a peak of 75 GB fails), ``flash_attention`` once a
+   layer, its first layer's call held against the plain version on
+   every block of 512 queries of every sequence, the ragged last one
+   included; a batch-1 handoff, prefill(32,767) + decode against
+   prefill(32,768), with three decode faults planted beside it (KV heads
+   grouped h % KV must fail its bound; the position one off and the
+   newest KV entry dropped are reported); and the reduced configs with
+   grouped KV heads (8 over 2; qwen2-7b also 14 over 2) on the card
+   against the CPU, with a float32 handoff that must reject all three
+   faults.  Before it and before phase 4's long cases, the card bytes
+   that only reference cycles hold are counted, and more than
+   ``CYCLE_BYTES_MAX`` fails.  Last, the
    roofline of every timed path (each serving path's prefill and decode
    step, the training steps): its step dry-run on meta tensors at the same
    depth, batch and length (``repro_torch.launch.dryrun.dry_run``, in two
@@ -155,6 +170,13 @@ one JSON line; any failure exits non-zero:
    must move over the memory rate and the operations these inputs need
    over the peak rate for their type, both counted from the data (float32
    attention: three TF32 products a product, at the TF32 rate).
+   Then the LM kernels at the reference's long shapes: ``flash_attention``
+   at qwen2-7b's prefill_32k shape for one sequence and at long_500k's
+   length as recurrentgemma-9b runs it (B = 1 and 2: 2^31 and 2^32 query
+   elements), ``rglru_scan`` at long_500k's length (2^31 and 2^32
+   elements an array), each run whole and held against its plain version
+   on every block of 512 queries or every span of 4,096 steps, the plain
+   scan carrying its own state from span to span (``long_cases``).
    Then ``overlay`` bit for bit at the edges of its seed from layer 0
    (``ref.overlay_edge_stacks``, K = 0, 1, 4, 5, 20) and on unaligned attrs,
    and ``overlay_batch`` at the edges the cases above do not reach: other
@@ -724,8 +746,7 @@ def handoff_logits(model, prefill_len: int, steps: int, inputs: dict) -> tuple:
     dev = model.embed.device
     n = prefill_len + steps
     n_img = model.cfg.n_img_tokens
-    tokens = torch.from_numpy(np.random.RandomState(1).randint(
-        0, model.cfg.vocab_size, size=(1, n)).astype(np.int32)).to(dev)
+    tokens = handoff_tokens(model, n)
     with torch.inference_mode():
         if steps == 1:
             want = model.prefill(tokens, cache_len=n_img + n + 8, **inputs)[0][0]
@@ -741,19 +762,27 @@ def handoff_logits(model, prefill_len: int, steps: int, inputs: dict) -> tuple:
     return torch.stack(got), want
 
 
+def handoff_tokens(model, n: int):
+    """The handoff checks' (1, n) int32 tokens, seeded, on the model's device."""
+    return torch.from_numpy(np.random.RandomState(1).randint(
+        0, model.cfg.vocab_size, size=(1, n)).astype(np.int32)).to(model.embed.device)
+
+
 def step_rels(got, want) -> list:
     """Each decode step's relative L2 against what it should be."""
     return ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
 
 
 def handoff_check(model, prefill_len: int, steps: int, bound: float, what: str,
-                  steps_bound=None, inputs=None, **note):
-    """``handoff_logits``: the first step's relative L2 (the handoff) must
-    be within ``bound``, every step's within ``steps_bound`` (default
-    ``bound``).  ``note`` goes into the printed line; a callable in it is
-    called after the run."""
+                  steps_bound=None, inputs=None, logits=None, **note):
+    """``handoff_logits`` (or ``logits``, the same pair computed by the
+    caller): the first step's relative L2 (the handoff) must be within
+    ``bound``, every step's within ``steps_bound`` (default ``bound``).
+    ``note`` goes into the printed line; a callable in it is called after
+    the run."""
     inputs = inputs or {}
-    got, want = handoff_logits(model, prefill_len, steps, inputs)
+    got, want = logits if logits is not None else handoff_logits(model, prefill_len, steps,
+                                                                   inputs)
     if not (torch.isfinite(want).all() and torch.isfinite(got).all()):
         fail(f"{what}: non-finite logits")
     rels = step_rels(got, want)
@@ -773,13 +802,17 @@ def handoff_check(model, prefill_len: int, steps: int, bound: float, what: str,
 
 
 def reduced_handoff(model, inputs: dict) -> dict:
-    """The reduced encoder-decoder or VLM (float32) on the card:
-    prefill(80) + 4 decode steps against the forward over 84 tokens, every
-    step within LM_REDUCED_HANDOFF_REL; then the same with a decode fault
-    planted that the bf16 handoffs cannot see (the decode position one
-    off; whisper's learned position one off at decode, the table read one
-    row late), each of which the same bound must reject.  Returns each
-    fault's largest step relative L2."""
+    """The reduced encoder-decoder, VLM or dense config (float32) on the
+    card: prefill(80) + 4 decode steps against the forward over 84 tokens,
+    every step within LM_REDUCED_HANDOFF_REL; then the same with a decode
+    fault planted that the bf16 handoffs cannot see (the decode position
+    one off; whisper's learned position one off at decode, the table read
+    one row late; for a dense config also the newest KV entry dropped and
+    KV heads grouped h % KV, ``dense_decode_faults``), each of which the
+    same bound must reject.  Returns each fault's largest step relative
+    L2."""
+    from lm_bf16_consistency import dense_decode_faults
+
     what = f"{model.cfg.name} reduced prefill+decode vs forward (float32)"
     decode, table = model.decode_step, model.pos
 
@@ -796,6 +829,8 @@ def reduced_handoff(model, inputs: dict) -> dict:
     faults = {"decode position one off": position_one_off}
     if table is not None:
         faults["learned position one off"] = learned_one_off
+    if model.cfg.family == "dense":
+        faults = dense_decode_faults(model)
     planted = {}
     for fault, step in faults.items():
         model.decode_step = step
@@ -811,16 +846,20 @@ def reduced_handoff(model, inputs: dict) -> dict:
     return planted
 
 
-def lm_reduced_card_vs_cpu(device, arch: str = LM_ARCH):
-    """``arch``'s reduced config (float32, head dim 16) on the card through
-    its kernels against the same weights on the CPU through the plain
-    versions: forward logits, prefill logits and 4 decode steps' logits
-    within 1e-4."""
+def lm_reduced_card_vs_cpu(device, arch: str = LM_ARCH, heads=None):
+    """``arch``'s reduced config (float32, head dim 16; ``heads``: its
+    (query, KV) head counts replaced, so grouped KV heads stay grouped) on
+    the card through its kernels against the same weights on the CPU
+    through the plain versions: forward logits, prefill logits and 4
+    decode steps' logits within 1e-4.  Then, for a config with a frontend
+    or a dense one, ``reduced_handoff`` on the card."""
     from lm_bf16_consistency import frontend_inputs
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import lm
 
     cfg = serve_mod.serving_config(arch, reduced=True)
+    if heads:
+        cfg = cfg.replace(n_heads=heads[0], n_kv_heads=heads[1])
     card = lm.init(cfg, seed=3, device=device, max_seq=96)
     host = lm.from_state_dict(cfg, {k: v.cpu() for k, v in card.state_dict().items()},
                               device="cpu")
@@ -853,9 +892,10 @@ def lm_reduced_card_vs_cpu(device, arch: str = LM_ARCH):
             check(got, want, f"decode step {t - 80}")
     emit(phase="main_path", check="lm reduced card vs cpu", arch=arch, layers=cfg.n_layers,
          kinds=sorted({b.kind for b in card.layers}), moe=cfg.is_moe, window=cfg.window,
-         enc_layers=len(card.enc_layers or ()), n_img_tokens=n_img,
-         frontend_inputs=sorted(extra), max_abs_err=err, tol=LM_REDUCED_TOL)
-    if extra:
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, enc_layers=len(card.enc_layers or ()),
+         n_img_tokens=n_img, frontend_inputs=sorted(extra), max_abs_err=err,
+         tol=LM_REDUCED_TOL)
+    if extra or cfg.family == "dense":
         reduced_handoff(card, frontend_inputs(cfg, 1, device))
 
 
@@ -921,13 +961,13 @@ def attention_launches(model) -> int:
 
 
 def family_serve(device, arch: str, layers=None, recorder=None, reduced=False,
-                 batch: int = LM_BATCH, prompt: int = LM_PROMPT):
+                 batch: int = LM_BATCH, prompt: int = LM_PROMPT, tag=None):
     """``serve(arch, batch, prompt, 16)`` in bf16 with seeded weights at
     full width (cut to ``layers`` layers when given), the kernels' launch
     counts zeroed just before and read just after: ``flash_attention``
     must launch ``attention_launches`` times (in the prefill; decode
-    attends in plain torch) and no other kernel at all.  Returns (model,
-    launches)."""
+    attends in plain torch) and no other kernel at all.  ``tag`` names
+    the path (default "<family> serve").  Returns (model, launches)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.launch import serve as serve_mod
@@ -943,7 +983,7 @@ def family_serve(device, arch: str, layers=None, recorder=None, reduced=False,
     model = lm.init(cfg, seed=0, device=device, max_seq=prompt + LM_GEN + 8)
     sync(device)
     init_s = time.perf_counter() - t0
-    tag = f"{cfg.family} serve"
+    tag = tag or f"{cfg.family} serve"
     if recorder is not None:
         recorder.tag = tag
         recorder.wrap(fa_ops, "flash_attention", "flash_attention", attention_call_kind)
@@ -1645,6 +1685,198 @@ def full_width_example(device, recorder=None, reduced: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3i: the dense family served whole at decode_32k's length
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("qwen3-1.7b", "qwen2-7b", "granite-3-8b", "minitron-8b")
+# 32,744-token prompts and 16 generated tokens: serve's max_seq (prompt +
+# 16 + 8) is 32,768, the length of decode_32k and prefill_32k
+# (configs/base.py)
+DENSE_PROMPT = 32_744
+# each config's batch, a cut from prefill_32k's global batch of 32 and
+# decode_32k's 128: the largest of 8, 4, 2, 1 whose peak stayed under
+# DENSE_PEAK_MAX on an H100 80GB (PERF.md section 4: peaks 54.2 / 49.9 /
+# 59.0 / 53.3 GB; batch 8 ran out of memory for the last three)
+DENSE_BATCH = {"qwen3-1.7b": 8, "qwen2-7b": 4, "granite-3-8b": 4, "minitron-8b": 4}
+DENSE_PEAK_MAX = 75e9
+DENSE_SHAPE_BATCHES = {"prefill_32k": 32, "decode_32k": 128}
+# batch 1: prefill(32,767) + decode_step against prefill(32,768)
+DENSE_HANDOFF_S = 32_768
+# the dense handoff in bf16 (tools/lm_bf16_consistency.py --family dense, on
+# the CPU at each config's depth and head counts, widths 64 and 256, S =
+# 1024): bf16 moves it 1.7-2.4% relative L2 (the bf16 prefill sits 1.4-2.3%
+# from its f32 twin); KV heads grouped h % KV at decode move it 94-123%;
+# the decode position one off 2.8-7.4% and the newest KV entry dropped
+# 1.8-4.0%, inside or near the bf16 noise.  The bound, 2^-3, lies between
+# the noise, with room for the larger drift full widths have shown (xLSTM:
+# 5.0% on the card, 2.2% at width 256), and the grouping fault, which it
+# must reject (DENSE_REJECTED); the other two are reported, and the
+# float32 reduced handoff on the card (``reduced_handoff``, 1e-4) rejects
+# all three.
+DENSE_CONSISTENCY_REL = 2.0 ** -3
+DENSE_REJECTED = ("grouped heads mapped h % KV",)
+# the reduced configs the card holds against the CPU, grouped KV heads kept
+# (tests/test_torch_dense_serve.py's cases): (arch, heads, KV heads)
+DENSE_REDUCED = (("qwen3-1.7b", 8, 2), ("qwen2-7b", 8, 2), ("granite-3-8b", 8, 2),
+                 ("minitron-8b", 8, 2), ("qwen2-7b", 14, 2))
+# card bytes that only reference cycles may hold at a phase's start: a
+# cycle that holds tensors keeps them until the collector runs (the
+# checkpoint store's tree walk, a nested function that called itself and
+# closed over the leaves, held a whole training state that way)
+CYCLE_BYTES_MAX = 1 << 30
+
+
+def held_in_cycles(where: str) -> None:
+    """Count the card tensors that only reference cycles hold (the
+    collector run with DEBUG_SAVEALL, which keeps what it would free),
+    print them with the referrers of the largest, then free them; fail
+    when they pass CYCLE_BYTES_MAX."""
+    import gc
+
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+    finally:
+        gc.set_debug(0)
+    garbage, ids = list(gc.garbage), {id(o) for o in gc.garbage}
+    gc.garbage.clear()
+    tensors = {t.untyped_storage().data_ptr(): t for t in garbage
+               if torch.is_tensor(t) and t.is_cuda}
+    held = sum(t.untyped_storage().nbytes() for t in tensors.values())
+    chain = holders(max(tensors.values(), key=lambda t: t.untyped_storage().nbytes()),
+                    ids) if tensors else []
+    emit(phase="memory", check="held in cycles", where=where, bytes=held,
+         tensors=len(tensors), objects=len(garbage), largest_held_by=chain,
+         limit=CYCLE_BYTES_MAX)
+    del garbage, tensors
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    if held > CYCLE_BYTES_MAX:
+        fail(f"{where}: {held} card bytes held only by reference cycles ({chain})")
+
+
+def holders(obj, ids: set, depth: int = 6) -> list:
+    """The names of the objects that hold ``obj``, one referrer a step,
+    among the objects whose ids are ``ids``."""
+    import gc
+
+    chain, seen = [], {id(obj)}
+    for _ in range(depth):
+        refs = [r for r in gc.get_referrers(obj) if id(r) in ids and id(r) not in seen]
+        if not refs:
+            break
+        obj = refs[0]
+        seen.add(id(obj))
+        chain.append(getattr(obj, "__qualname__", type(obj).__name__))
+    return chain
+
+
+def dense_attention(tag: str, recorder) -> None:
+    """The first ``flash_attention`` call of the serving path ``tag``
+    (its first layer's prefill, recorded as it ran), the kernel run on
+    those inputs twice (the same bits) and held against the plain version
+    on every block of LONG_BLOCK queries of every sequence, the ragged last
+    one with the key tile that Sk = 32,744 leaves short included
+    (``attention_blocks``); the inputs are dropped after."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    args, kw = recorder.inputs.pop(("flash_attention", tag))
+    q, k, v, q_pos, k_pos = args
+    S = q.shape[2]
+    arange = torch.arange(S, dtype=q_pos.dtype, device=q_pos.device)
+    if not (torch.equal(q_pos, arange) and torch.equal(k_pos, arange)):
+        fail(f"{tag}: the prefill's attention positions are not 0..{S - 1}")
+    got = fa_ops.flash_attention(*args, **kw)
+    if not torch.equal(fa_ops.flash_attention(*args, **kw), got):
+        fail(f"flash_attention ({tag}): two runs differ")
+    row = attention_blocks(tag, q, k, v, q_pos, kw, got)
+    emit(phase="main_path", check=f"{tag} attention vs plain", layer=0,
+         shape=dict(B=q.shape[0], H=q.shape[1], S=S, D=q.shape[3], dtype=str(q.dtype),
+                    kv_head_stride=k.stride(1), **kw),
+         ragged_key_tile=S % FA_KEY_TILE, tol=ATTN_TOL[q.dtype], **row)
+
+
+def dense_handoff(model, S: int) -> tuple:
+    """Batch 1: prefill(S)'s last logits and prefill(S-1)'s cache, each
+    computed once; decode_step at position S-1 from a copy of that cache
+    with each of ``dense_decode_faults`` planted, then from the cache
+    itself.  Returns ({fault: (1, V) logits}, the sound (1, V) logits,
+    prefill(S)'s (1, V))."""
+    from torch.utils._pytree import tree_map
+
+    from lm_bf16_consistency import dense_decode_faults
+
+    tokens = handoff_tokens(model, S)
+    pos = torch.tensor([S - 1], dtype=torch.int32, device=tokens.device)
+    planted = {}
+    with torch.inference_mode():
+        want = model.prefill(tokens, cache_len=S + 8)[0][0]
+        _, caches = model.prefill(tokens[:, :S - 1], cache_len=S + 8)
+        for fault, step in dense_decode_faults(model).items():
+            copy = tree_map(lambda t: t.clone() if torch.is_tensor(t) else t, caches)
+            planted[fault] = step(copy, tokens[:, S - 1:], pos)[0][0, -1][None]
+            del copy
+        got = model.decode_step(caches, tokens[:, S - 1:], pos)[0][0, -1][None]
+    return planted, got, want
+
+
+def dense_consistency(model, S: int, rejected=()) -> None:
+    """prefill(S-1) + decode_step against prefill(S) within
+    DENSE_CONSISTENCY_REL (``dense_handoff``), each planted fault's
+    relative L2 reported; those in ``rejected`` must pass the bound."""
+    faulty, got, want = dense_handoff(model, S)
+    planted = {fault: step_rels(logits, want)[0] for fault, logits in faulty.items()}
+    handoff_check(model, S - 1, 1, DENSE_CONSISTENCY_REL, "dense prefill+decode vs prefill",
+                  logits=(got, want), heads=model.cfg.n_heads, kv_heads=model.cfg.n_kv_heads,
+                  planted_rel_l2=planted)
+    kept = [f for f in rejected if not planted[f] > DENSE_CONSISTENCY_REL]
+    if kept:
+        fail(f"dense prefill+decode vs prefill ({model.cfg.name}): {kept} pass the bound "
+             f"{DENSE_CONSISTENCY_REL} ({planted})")
+
+
+def dense_batch(arch: str, reduced: bool) -> int:
+    return 2 if reduced else DENSE_BATCH[arch]
+
+
+def dense_paths(device, recorder, reduced: bool = False) -> dict:
+    """Phase 3i: each of DENSE_ARCHS whole at ``dense_batch`` through
+    ``family_serve`` (a peak of DENSE_PEAK_MAX fails), its first
+    attention call against the plain version (``dense_attention``) and its
+    handoff check; then (on the card) DENSE_REDUCED card against CPU.
+    Returns each serving path's launches."""
+    t0 = time.perf_counter()
+    held_in_cycles("dense serve phase")
+    launches = {}
+    for arch in DENSE_ARCHS:
+        tag, batch = f"dense serve {arch}", dense_batch(arch, reduced)
+        model, launches[tag] = family_serve(device, arch, None, recorder, reduced, batch=batch,
+                                            prompt=DENSE_PROMPT, tag=tag)
+        peak = TIMED[f"{tag} prefill"]["peak_memory_bytes"]
+        prompt = DENSE_PROMPT if not reduced else 48
+        emit(phase="main_path", check="dense serve batch", arch=arch, batch=batch,
+             peak_memory_bytes=peak, peak_max=DENSE_PEAK_MAX, max_seq=prompt + LM_GEN + 8,
+             cut_from={shape: f"batch {batch} of {n}" for shape, n in DENSE_SHAPE_BATCHES.items()})
+        if peak is not None and peak >= DENSE_PEAK_MAX:
+            fail(f"{tag}: peak {peak} bytes at batch {batch}, over {DENSE_PEAK_MAX}")
+        dense_attention(tag, recorder)
+        if reduced:  # float32: the bf16 bound says nothing of its faults
+            dense_consistency(model, 48)
+        else:
+            dense_consistency(model, DENSE_HANDOFF_S, DENSE_REJECTED)
+        del model
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if device.type == "cuda":
+        for arch, heads, kv in DENSE_REDUCED:
+            lm_reduced_card_vs_cpu(device, arch, heads=(heads, kv))
+    emit(phase="main_path", check="dense serve phase", seconds=time.perf_counter() - t0,
+         batches={arch: dense_batch(arch, reduced) for arch in DENSE_ARCHS})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 3g: the roofline of every timed path
 # ---------------------------------------------------------------------------
 
@@ -1697,7 +1929,27 @@ def roofline_paths(reduced: bool = False) -> dict:
         cfg, seq = cfg.reduced(), 64
     paths[EXAMPLE_FULL_PATH] = (cfg, ShapeConfig(EXAMPLE_FULL_PATH, seq, batch, "train"), 0,
                                 4 * seq)
+    for arch in DENSE_ARCHS:
+        cfg, prompt, batch = get_config(arch), DENSE_PROMPT, dense_batch(arch, reduced)
+        if reduced:
+            cfg, prompt = cfg.reduced(), 48
+        for kind in ("prefill", "decode"):
+            name = f"dense serve {arch} {kind}"
+            paths[name] = (cfg, ShapeConfig(name, prompt, batch, kind), prompt + LM_GEN + 8,
+                           prompt + LM_GEN + 8)
     return paths
+
+
+def attention_pair_flops(cfg, shape, cache_len: int) -> tuple:
+    """A dense path's attention FLOPs as the dry run counts them (every
+    (query, key) pair: the plain attention's S x S scores in a prefill,
+    every one of the cache's ``cache_len`` slots in a decode step) and as
+    the masks let them through (causal pairs; the filled slots up to the
+    new token), 4 x head_dim a pair, a head and a layer."""
+    B, S = shape.global_batch, shape.seq_len
+    every, visible = (S * S, S * (S + 1) // 2) if shape.kind == "prefill" else (cache_len, S + 1)
+    per_pair = 4 * cfg.resolved_head_dim * cfg.n_heads * B * cfg.n_layers
+    return per_pair * every, per_pair * visible
 
 
 def dry_runs(names, reduced: bool) -> int:
@@ -1717,16 +1969,17 @@ def start_dry_runs(reduced: bool = False) -> list:
     """Start the dry runs of every timed path in two child processes, and
     MESH_DRY_RUN in a third (no card: meta tensors only), so their host
     time overlaps phase 3's."""
-    names = list(roofline_paths(reduced))
-    groups = [[n for n in names if n in SLOW_DRY_RUNS],
-              [n for n in names if n not in SLOW_DRY_RUNS]]
     cmd = [sys.executable, str(Path(__file__).resolve())]
     if reduced:
         cmd += ["--device", "cpu"]
+    names = list(roofline_paths(reduced))
+    runs = [["--dry-runs", *[n for n in names if n in SLOW_DRY_RUNS]],
+            ["--dry-runs", *[n for n in names if n not in SLOW_DRY_RUNS]],
+            ["--mesh-dry-run"]]
     return [subprocess.Popen(cmd + args, stdout=subprocess.PIPE,
                              stderr=subprocess.PIPE, text=True, cwd=ROOT,
                              env=dict(os.environ, OMP_NUM_THREADS="1"))
-            for args in [["--dry-runs", *g] for g in groups] + [["--mesh-dry-run"]]]
+            for args in runs]
 
 
 def stop(procs) -> None:
@@ -1759,8 +2012,11 @@ def roofline_phase(recs: dict, reduced: bool = False) -> None:
     compute and memory terms at the H100's data-sheet peaks, the measured
     seconds, ``mfu`` = model FLOPs / (measured s x PEAK_FLOPS) and
     ``roofline_share`` = the roofline's step time / measured s; the dry
-    run's peak-memory estimate beside the path's measured peak.  Fails
-    when a share exceeds ROOFLINE_SHARE_MAX."""
+    run's peak-memory estimate beside the path's measured peak.  A dense
+    serving path's line also carries the count with attention charged
+    only for the pairs its masks let through (``attention_pair_flops``)
+    and the share that count gives.  Fails when a share exceeds
+    ROOFLINE_SHARE_MAX."""
     from repro_torch.roofline import roofline as rl
 
     shares = {}
@@ -1769,6 +2025,14 @@ def roofline_phase(recs: dict, reduced: bool = False) -> None:
         roof, seconds = rec["roofline"], timed["seconds"]
         mf = rl.model_flops(shape.kind, rec["n_active_params"], rec["tokens_per_step"])
         shares[name] = roof["step_time_s"] / seconds
+        visible = {}
+        if name.startswith("dense "):
+            every, seen = attention_pair_flops(cfg, shape, cache_len)
+            flops = rec["cost"]["flops"] - every + seen
+            step_s = max(flops / rl.PEAK_FLOPS, roof["memory_s"])
+            visible = dict(attention_flops_counted=every, attention_flops_visible=seen,
+                           visible_pair_flops=flops, visible_step_time_s=step_s,
+                           visible_roofline_share=step_s / seconds)
         emit(phase="roofline", path=name, arch=cfg.name, layers=cfg.n_layers, kind=shape.kind,
              batch=shape.global_batch, seq_len=shape.seq_len, cache_len=cache_len,
              tokens=rec["tokens_per_step"], n_active_params=rec["n_active_params"],
@@ -1781,7 +2045,7 @@ def roofline_phase(recs: dict, reduced: bool = False) -> None:
              mfu=mf / (seconds * rl.PEAK_FLOPS), roofline_share=shares[name],
              predicted_peak_memory_bytes=rec["memory"]["peak_bytes_est"],
              measured_peak_memory_bytes=timed["peak_memory_bytes"],
-             dry_run_seconds=rec["trace_s"], source=roof["source"])
+             dry_run_seconds=rec["trace_s"], source=roof["source"], **visible)
     over = {n: v for n, v in shares.items() if v > ROOFLINE_SHARE_MAX}
     if over:
         fail(f"roofline: measured faster than the roofline allows {over}: a miscount")
@@ -2559,6 +2823,217 @@ def headline_inputs(dev):
     ]]
 
 
+# the long cases: each attention case's query blocks and each scan's spans
+# are held against the plain version on their own (the plain attention
+# cannot hold 28 x 32,768^2 float32 scores, 120 GB, nor the plain scan 2^32
+# elements in its log-depth passes)
+LONG_BLOCK, LONG_SPAN = 512, 4096
+
+
+def attention_blocks(tag, q, k, v, pos, kw, got) -> dict:
+    """``got``, the bf16 kernel's output over q, k, v with queries and
+    keys both at positions ``pos`` = 0..S-1, held against the plain
+    version on every block of LONG_BLOCK queries (the last one short where
+    S is no multiple of it) of every sequence, each over the keys it can
+    see, within ATTN_TOL and FWD_BF16_TOL (``bf16_forward_check``).
+    Returns the blocks compared, the max abs error and the largest share
+    of the bf16 limit with its block."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, S, window = q.shape[0], q.shape[2], kw.get("window", 0)
+
+    def plain(*a, **k):
+        return fa_ref.attention_ref(*a, **k).to(q.dtype)
+
+    err, worst, n = 0.0, (None, None), 0
+    for a in range(0, S, LONG_BLOCK):
+        b = min(a + LONG_BLOCK, S)
+        lo = max(0, a - window + 1) if window else 0
+        for r in range(B):
+            where = f"sequence {r} queries {a}..{b - 1}"
+            args = [q[r:r + 1, :, a:b], k[r:r + 1, :, lo:b], v[r:r + 1, :, lo:b], pos[a:b],
+                    pos[lo:b]]
+            want, part = plain(*args, **kw), got[r:r + 1, :, a:b]
+            e = float((part.float() - want.float()).abs().max())
+            err = max(err, e)
+            if not torch.allclose(part.float(), want.float(), **ATTN_TOL[q.dtype]):
+                fail(f"flash_attention ({tag}) {where} outside {ATTN_TOL[q.dtype]} of the "
+                     f"plain version: max err {e}")
+            if q.dtype == torch.bfloat16:
+                share = bf16_forward_check(f"{tag} {where}", args, kw, part, want, plain,
+                                           False)["fwd_bf16_share_of_limit"]
+                if worst[0] is None or share > worst[0]:
+                    worst = (share, where)
+            n += 1
+    return dict(blocks_compared=n, block=LONG_BLOCK, max_abs_err=err,
+                fwd_bf16_share_of_limit=worst[0], worst_block=worst[1])
+
+
+def visible_pairs(S: int, window: int = 0) -> int:
+    """Causal (query, key) pairs over positions 0..S-1, a query seeing at
+    most ``window`` keys (itself and the window - 1 before it; 0: all)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def long_attention_case(dev, gen, tag, B, H, S, D, kv_heads, window, starts, ends, reps=15):
+    """bf16 causal attention over S positions (K/V drawn at ``kv_heads``
+    heads and repeated to H, one head at stride 0), run whole; held
+    against the plain version on every block of LONG_BLOCK queries
+    (``attention_blocks``); the same bits on a second run.  Times: the
+    kernel whole (the median of ``reps`` calls); the plain version, the
+    kernel and SDPA with a boolean mask over the timed blocks, LONG_BLOCK
+    queries from each of ``starts`` and the last ``ends`` queries; SDPA
+    with ``is_causal`` whole where there is no window."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    bf16 = torch.bfloat16
+    q = torch.empty(B, H, S, D, dtype=bf16, device=dev).normal_(0.0, 0.5, generator=gen)
+    k, v = (torch.empty(B, kv_heads, S, D, dtype=bf16, device=dev).normal_(0.0, 0.5,
+                                                                           generator=gen)
+            for _ in range(2))
+    if kv_heads == 1:
+        k, v = k.expand(B, H, S, D), v.expand(B, H, S, D)
+    else:
+        k, v = k.repeat_interleave(H // kv_heads, 1), v.repeat_interleave(H // kv_heads, 1)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, window=window)
+    got = fa_ops.flash_attention(q, k, v, pos, pos, **kw)
+    torch.cuda.synchronize()
+    again = fa_ops.flash_attention(q, k, v, pos, pos, **kw)
+    if not torch.equal(again, got):
+        fail(f"flash_attention ({tag}): two runs differ")
+    del again
+    blocks = [(a, a + LONG_BLOCK) for a in starts] + [(S - n, S) for n in ends]
+
+    def block(a, b):  # the block's queries and the keys they can see
+        lo = max(0, a - window + 1) if window else 0
+        return [q[:, :, a:b], k[:, :, lo:b], v[:, :, lo:b], pos[a:b], pos[lo:b]]
+
+    def plain(*a, **k):
+        return fa_ref.attention_ref(*a, **k).to(bf16)
+
+    compared = attention_blocks(tag, q, k, v, pos, kw, got)
+    pairs = visible_pairs(S, window) * B * H
+    ops = 4 * D * pairs
+    nbytes = (2 * q.numel() + B * kv_heads * S * D * 2) * 2 + 8 * S
+    ops_ms, bytes_ms = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    del got
+
+    def each(fn):
+        return lambda: [fn(*block(a, b)) for a, b in blocks]
+
+    masked = [dict(attn_mask=fa_ref.position_mask(*block(a, b)[3:], **kw)) for a, b in blocks]
+
+    def sdpa_blocks():
+        return [torch.nn.functional.scaled_dot_product_attention(*block(a, b)[:3], **m)
+                for (a, b), m in zip(blocks, masked)]
+
+    library_all = {"SDPA, boolean mask, over the timed blocks": device_ms(sdpa_blocks)}
+    if not window:
+        library_all["SDPA, is_causal, whole"] = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True))
+    library_call = "SDPA, is_causal, whole" if not window else \
+        "SDPA, boolean mask, over the timed blocks"
+    row = dict(shape=dict(B=B, H=H, Sq=S, Sk=S, D=D, dtype="torch.bfloat16", kv_heads=kv_heads,
+                          kv_head_stride=k.stride(1), q_elements=q.numel(), pairs=pairs, **kw),
+               timed_blocks=[f"{a}..{b - 1}" for a, b in blocks], **compared,
+               ms=device_ms(lambda: fa_ops.flash_attention(q, k, v, pos, pos, **kw), reps),
+               reps=reps,
+               kernel_blocks_ms=device_ms(each(lambda *a: fa_ops.flash_attention(*a, **kw))),
+               plain_ms=device_ms(each(lambda *a: plain(*a, **kw))),
+               plain_ms_over="the timed blocks", bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms > bytes_ms else "bytes",
+               library_ms=library_all[library_call], library_call=library_call,
+               library_all_ms=library_all)
+    emit(phase="kernel_vs_plain", kernel="flash_attention", inputs=tag, **row)
+    return row
+
+
+def long_rglru_case(dev, gen, tag, B, S, W):
+    """The RG-LRU scan over (B, S, W) float32, run whole; held against the
+    plain scan on every span of LONG_SPAN steps of every batch row, the
+    plain scan carrying its own h from one span to the next (x at a span's
+    first step plus exp(log_a) h there), within RGLRU_TOL; every h
+    finite; the same bits on a second run.  Times: the kernel whole, the
+    plain scan over its first, a middle and its last span."""
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+
+    la = torch.empty(B, S, W, device=dev).uniform_(-0.5, 0.0, generator=gen)
+    x = torch.empty(B, S, W, device=dev).normal_(generator=gen)
+    h = rg_ops.rglru(la, x)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(part).all()) for part in h.view(-1).split(1 << 28)):
+        fail(f"rglru_scan ({tag}): non-finite h")
+    again = rg_ops.rglru(la, x)
+    if not torch.equal(again, h):
+        fail(f"rglru_scan ({tag}): two runs differ")
+    del again
+    mid = S // 2 - 100  # no multiple of the kernel's chunk
+    spans = [(0, LONG_SPAN), (mid, mid + LONG_SPAN), (S - LONG_SPAN, S)]
+    err, carry, n = 0.0, None, 0
+    for a in range(0, S, LONG_SPAN):
+        b = min(a + LONG_SPAN, S)
+        xs = x[:, a:b].clone()
+        if carry is not None:
+            xs[:, 0] += torch.exp(la[:, a]) * carry
+        want = rg_ref.rglru_ref(la[:, a:b], xs)
+        e = float((h[:, a:b] - want).abs().max())
+        err, carry, n = max(err, e), want[:, -1], n + 1
+        if not torch.allclose(h[:, a:b], want, **RGLRU_TOL):
+            fail(f"rglru_scan ({tag}) steps {a}..{b - 1} outside {RGLRU_TOL} of the plain "
+                 f"scan: max err {e}")
+    del h, xs, want, carry
+    ops_ms = 3 * la.numel() / FP32_OPS_PER_S * 1e3
+    bytes_ms = 12 * la.numel() / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=dict(B=B, S=S, W=W, chunk=rg_ops.CHUNK, elements=la.numel()),
+               spans_compared=n, span=LONG_SPAN, carry="the plain scan's own",
+               timed_spans=[f"{a}..{b - 1}" for a, b in spans], max_abs_err=err,
+               ms=device_ms(lambda: rg_ops.rglru(la, x)),
+               plain_ms=device_ms(lambda: [rg_ref.rglru_ref(la[:, a:b], x[:, a:b])
+                                           for a, b in spans]),
+               plain_ms_over="the timed spans", bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms > bytes_ms else "bytes", library_ms=None,
+               library_call=None)
+    emit(phase="kernel_vs_plain", kernel="rglru_scan", inputs=tag, **row)
+    return row
+
+
+def long_cases(dev) -> dict:
+    """The LM kernels at the reference's long shapes: ``flash_attention``
+    at qwen2-7b's prefill_32k shape for one sequence (H = 28 over 4 KV
+    heads, D = 128, causal) and at long_500k's length as recurrentgemma-9b
+    runs it (H = 16 over one KV head, D = 256, window 2048) at B = 1 and 2
+    (2^31 and 2^32 query elements); ``rglru_scan`` at long_500k's length,
+    W = 4096, B = 1 and 2 (2^31 and 2^32 elements an array).  Returns
+    {kernel: {tag: row}}.  Long_500k's attention takes seconds a call
+    (PERF.md), so its whole-input time is the median of 3 calls."""
+    held_in_cycles("long cases")
+    emit(phase="long_cases", allocated_bytes=torch.cuda.memory_allocated())
+    gen = torch.Generator(device=dev).manual_seed(37)
+    out = {"flash_attention": {}, "rglru_scan": {}}
+    S = 32_768
+    tag = f"qwen2-7b prefill_32k B=1 H=28 S={S} D=128 bf16 causal, 4 KV heads repeated"
+    out["flash_attention"][tag] = long_attention_case(
+        dev, gen, tag, 1, 28, S, 128, 4, 0, starts=(0, S // 2 - 64), ends=(LONG_BLOCK,))
+    torch.cuda.empty_cache()
+    S = 524_288
+    for B in (1, 2):
+        tag = f"long_500k B={B} H=16 S={S} D=256 bf16 causal window=2048 KV head stride 0"
+        out["flash_attention"][tag] = long_attention_case(
+            dev, gen, tag, B, 16, S, 256, 1, 2048, starts=(0, S // 2 - 64), ends=(2048,),
+            reps=3)
+        torch.cuda.empty_cache()
+    for B in (1, 2):
+        tag = f"long_500k B={B} S={S} W=4096"
+        out["rglru_scan"][tag] = long_rglru_case(dev, gen, tag, B, S, 4096)
+        torch.cuda.empty_cache()
+    return out
+
+
 def overlay_edges(dev) -> None:
     """``overlay`` bit for bit against ``overlay_ref`` and
     ``overlay_seeded_ref`` at the edges of its seed from layer 0 (the
@@ -2687,6 +3162,7 @@ def main() -> int:
             graph_examples(torch.device("cpu"), args.events)
             train_examples(torch.device("cpu"))
             full_width_example(torch.device("cpu"), reduced=True)
+            dense_paths(torch.device("cpu"), Recorder(), reduced=True)
             roofline_phase(read_dry_runs(procs), reduced=True)
         finally:
             stop(procs)
@@ -2756,6 +3232,8 @@ def main() -> int:
         by_path.update({f"example train_lm {a}": c for a, c in train_examples(dev).items()})
         by_path[EXAMPLE_FULL_PATH] = full_width_example(dev, recorder)
         torch.cuda.empty_cache()  # the 27.5 GB training state is gone
+        # 3i. the dense family whole at decode_32k's length
+        by_path.update(dense_paths(dev, recorder))
         missing = [k for k, v in launches.items() if v == 0]
         if missing:
             fail(f"kernels of the main path never launched: {missing}")
@@ -2792,6 +3270,13 @@ def main() -> int:
                          headline=headline))
         if kname == "rglru_scan.bwd":  # each load path's registers, shared memory, residency
             rows[-1]["resources"] = rg_ops.bwd_resources()
+    del headlines, others, inputs
+    recorder.inputs.clear()
+    torch.cuda.empty_cache()
+    for kname, cases in long_cases(dev).items():
+        row = next(r for r in rows if r["name"] == kname)
+        row["headline"].update(cases)
+        row["max_abs_err"] = max([row["max_abs_err"]] + [c["max_abs_err"] for c in cases.values()])
     overlay_edges(dev)
     emit(phase="done", seconds=time.perf_counter() - start)
     print(json.dumps({"kernels": rows}), flush=True)

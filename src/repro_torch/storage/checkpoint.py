@@ -64,36 +64,41 @@ def tree_flatten(tree):
     """(leaves, treedef) in ``jax.tree.flatten``'s order: dict keys
     sorted, lists and tuples in order, ``None`` an empty subtree."""
     leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return ("none",)
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, tuple(walk(c) for c in node))
-        leaves.append(node)
-        return ("leaf",)
 
-    return leaves, walk(tree)
+def _flatten(node, leaves: List[Any]):
+    """``node``'s treedef, its leaves appended to ``leaves``.  At module
+    level: a nested function that calls itself is a reference cycle, and
+    one that closed over ``leaves`` kept every tensor of the tree alive
+    until the garbage collector ran."""
+    if node is None:
+        return ("none",)
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", tuple(keys), tuple(_flatten(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, tuple(_flatten(c, leaves) for c in node))
+    leaves.append(node)
+    return ("leaf",)
 
 
 def tree_unflatten(treedef, leaves):
-    it = iter(leaves)
+    return _unflatten(treedef, iter(leaves))
 
-    def build(d):
-        kind = d[0]
-        if kind == "none":
-            return None
-        if kind == "leaf":
-            return next(it)
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        children = [build(c) for c in d[1]]
-        return children if kind == "list" else tuple(children)
 
-    return build(treedef)
+def _unflatten(d, it):
+    """The tree of treedef ``d``, its leaves taken from ``it`` in order
+    (at module level, as ``_flatten``)."""
+    kind = d[0]
+    if kind == "none":
+        return None
+    if kind == "leaf":
+        return next(it)
+    if kind == "dict":
+        return {k: _unflatten(c, it) for k, c in zip(d[1], d[2])}
+    children = [_unflatten(c, it) for c in d[1]]
+    return children if kind == "list" else tuple(children)
 
 
 def _host(leaf) -> np.ndarray:

@@ -7,6 +7,9 @@ from the step-7 save, within rtol 1e-5); every chunk blob byte-identical
 to the reference's for the same tree; tensor leaves (bfloat16 included)
 put back on the example tree's devices and types; and the copied
 elastic coordinator's plan equal to the reference's."""
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -145,6 +148,31 @@ def test_tensor_leaves_restore_onto_the_example():
                 np.testing.assert_array_equal(a, b)
     bare, _ = store.restore(step=2)
     assert bare["p"]["e"].dtype == torch.bfloat16 and isinstance(bare["p"]["w"], np.ndarray)
+
+
+def test_saved_tree_freed_without_the_garbage_collector():
+    """Flattening, rebuilding, saving and restoring a tree of tensors
+    leaves no reference cycle that holds its leaves: with the garbage
+    collector off they go as soon as the caller drops them (a nested
+    walk that called itself once kept a whole training state alive on
+    the card until the collector ran)."""
+    tree = {"p": {"w": torch.randn(40, 30), "e": torch.randn(7).to(torch.bfloat16)},
+            "n": [torch.tensor(1), None]}
+    refs = [weakref.ref(t) for t in tree_flatten(tree)[0]]
+    store = CheckpointStore(DeltaStore(m=2, r=1, backend="mem"),
+                            CheckpointConfig(snapshot_every=2))
+    gc.disable()
+    try:
+        leaves, treedef = tree_flatten(tree)
+        again = tree_unflatten(treedef, leaves)
+        store.save(0, again)
+        store.save_async(1, tree).result()
+        got, _ = store.restore(step=1, example_tree=tree)
+        got_refs = [weakref.ref(t) for t in tree_flatten(got)[0]]
+        del tree, leaves, again, got
+        assert [r() for r in refs + got_refs] == [None] * (len(refs) + len(got_refs))
+    finally:
+        gc.enable()
 
 
 def test_train_crash_resume_equivalence():

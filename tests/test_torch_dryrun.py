@@ -198,7 +198,7 @@ def test_chip_smoke_roofline_phase(capsys, monkeypatch):
     finally:
         chip_smoke.stop(procs)
     paths = chip_smoke.roofline_paths(reduced=True)
-    assert set(recs) == set(paths) | {"mesh"} and len(paths) == 12
+    assert set(recs) == set(paths) | {"mesh"} and len(paths) == 20  # 8 of the dense family
     timed = {name: dict(seconds=0.5, peak_memory_bytes=None) for name in paths}
     monkeypatch.setattr(chip_smoke, "TIMED", timed)
     chip_smoke.roofline_phase(recs, reduced=True)
@@ -218,6 +218,34 @@ def test_chip_smoke_roofline_phase(capsys, monkeypatch):
     timed["lm train"]["seconds"] = train / (chip_smoke.ROOFLINE_SHARE_MAX * 1.01)
     with pytest.raises(SystemExit, match="lm train"):
         chip_smoke.roofline_phase(recs, reduced=True)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_chip_smoke_dense_attention_flops(kind, monkeypatch):
+    """What ``chip_smoke.py``'s dense roofline lines take out of a dense
+    serving path's count (``attention_pair_flops``' first term) is what
+    the dry run counts for attention: the count less the count with
+    attention doing no product (the prefill's ``flash_attention``, the
+    decode's ``_decode_mha``); the pairs the masks let through are the
+    causal ones in a prefill, the slots filled up to the new token in a
+    decode step."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    from repro_torch.models import attention
+
+    name = f"dense serve qwen2-7b {kind}"
+    cfg, shape, cache_len, max_seq = chip_smoke.roofline_paths(reduced=True)[name]
+    full = dryrun.dry_run(cfg, shape, cache_len=cache_len, max_seq=max_seq)["cost"]["flops"]
+    if kind == "prefill":
+        monkeypatch.setattr(fa_ops, "flash_attention", lambda q, *a, **kw: q)
+    else:
+        monkeypatch.setattr(attention, "_decode_mha", lambda k, v, q, *a: q)
+    bare = dryrun.dry_run(cfg, shape, cache_len=cache_len, max_seq=max_seq)["cost"]["flops"]
+    every, visible = chip_smoke.attention_pair_flops(cfg, shape, cache_len)
+    assert full - bare == every > 0
+    S = shape.seq_len
+    pairs = (S * S, S * (S + 1) // 2) if kind == "prefill" else (cache_len, S + 1)
+    assert every * pairs[1] == visible * pairs[0]
 
 
 def test_importing_the_dry_run_loads_no_jax_and_no_repro():

@@ -16,7 +16,16 @@ the tiles they may see 256 at a time) and on the layouts a caller may pass
 stride that is no multiple of 4).  Needs the card; run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_bwd_cuda.py
+
+When ``test_rglru_function_gradients`` fails, it saves its inputs and
+both sides' gradients under ``build/rglru_failures/`` and names the file;
+``python3 tools/rglru_replay.py FILE`` reruns the CPU side from it in a
+fresh process and says whether its bits repeat.
 """
+import os
+import time
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +40,7 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 LSE_TOL = dict(atol=1e-4, rtol=1e-4)
 F32_REF_TOL = 2.0 ** -16  # chip_smoke's: split products, sums rounded otherwise
+FAILURES = Path(__file__).resolve().parents[1] / "build" / "rglru_failures"
 
 
 @pytest.fixture
@@ -311,17 +321,38 @@ def test_rglru_function_gradients(card):
     la_h, b_h = (t.detach().cpu().requires_grad_() for t in (log_a, b))
     want = torch.autograd.grad(rg_ops.rglru(la_h, b_h), (la_h, b_h), dh.cpu())
     exact = _rglru_grads64(log_a, b, dh)
-    for name, a, w, x in zip(("dlog_a", "db"), got, want, exact):
-        a = a.cpu()
+    try:
+        for name, a, w, x in zip(("dlog_a", "db"), got, want, exact):
+            a = a.cpu()
 
-        def why(msg, a=a, w=w, x=x, name=name):
-            i = tuple(int(j) for j in np.unravel_index(int((a - w).abs().argmax()), a.shape))
-            return (f"{name}, card vs CPU: {msg}\nat {i}: card {a[i].item()!r}, CPU "
-                    f"{w[i].item()!r}, float64 {x[i].item()!r}; largest distance from "
-                    f"float64: card {(a - x).abs().max().item():.3g}, CPU "
-                    f"{(w - x).abs().max().item():.3g}")
+            def why(msg, a=a, w=w, x=x, name=name):
+                i = tuple(int(j) for j in np.unravel_index(int((a - w).abs().argmax()),
+                                                           a.shape))
+                return (f"{name}, card vs CPU: {msg}\nat {i}: card {a[i].item()!r}, CPU "
+                        f"{w[i].item()!r}, float64 {x[i].item()!r}; largest distance from "
+                        f"float64: card {(a - x).abs().max().item():.3g}, CPU "
+                        f"{(w - x).abs().max().item():.3g}")
 
-        torch.testing.assert_close(a, w, msg=why, **TOL[torch.float32])
+            torch.testing.assert_close(a, w, msg=why, **TOL[torch.float32])
+    except AssertionError as e:
+        path = _save_failure(log_a, b, dh, got, want)
+        raise AssertionError(f"{e}\ninputs and both sides' gradients saved to {path}; "
+                             f"python3 tools/rglru_replay.py {path} reruns the CPU side "
+                             f"in a fresh process") from None
+
+
+def _save_failure(log_a, b, dh, card_grads, cpu_grads) -> Path:
+    """The failed comparison's inputs and gradients (each side's dlog_a and
+    db) on the host, in a file of its own under FAILURES."""
+    FAILURES.mkdir(parents=True, exist_ok=True)
+    stamp = f"{time.strftime('%Y%m%d-%H%M%S')}_{os.getpid()}"
+    path = FAILURES / f"rglru_function_gradients_{stamp}.pt"
+    host = [t.detach().cpu() for t in (log_a, b, dh)]
+    torch.save({"log_a": host[0], "b": host[1], "dh": host[2],
+                "card": [g.detach().cpu() for g in card_grads],
+                "cpu": [g.detach().cpu() for g in cpu_grads],
+                "torch": str(torch.__version__), "threads": torch.get_num_threads()}, path)
+    return path
 
 
 def test_f32_single_query_any_stride(card):

@@ -38,10 +38,19 @@ Families and their handoffs (as ``chip_smoke.py`` runs them):
 - ``vlm``: ``phi-3-vision-4.2b`` at 32 layers, 576 seeded image
   embeddings before 512 text tokens, prefill(511) + one step against
   prefill(512); faults: decode positions not offset by the image prefix,
-  the image prefix's KV entries lost, the decode position one off.
+  the image prefix's KV entries lost, the decode position one off;
+- ``dense``: ``qwen3-1.7b``, ``qwen2-7b``, ``granite-3-8b`` and
+  ``minitron-8b`` at their depths (28, 28, 40, 32) with their own query
+  and KV head counts (16/8, 28/4, 32/8, 32/8: grouped heads), S = 1024,
+  prefill(1023) + one step against prefill(1024); faults
+  (``dense_decode_faults``, which ``chip_smoke.py`` plants too): the
+  decode position one off, the newest KV entry dropped (the prompt's
+  last token hidden from the decode), KV heads grouped ``h % KV`` at
+  decode instead of ``h // (H / KV)``.
 
     PYTHONPATH=src python tools/lm_bf16_consistency.py [--family NAME] [--width W]
-    # recurrentgemma ~1 min, moe ~3 min, xlstm ~4 min, whisper ~1 min, vlm ~2 min
+    # recurrentgemma ~1 min, moe ~3 min, xlstm ~4 min, whisper ~1 min, vlm ~2 min,
+    # dense ~6 min
 """
 from __future__ import annotations
 
@@ -64,13 +73,15 @@ def _rel(got, want) -> float:
 
 
 def handoff(model, tokens, prefill_len: int, pos_shift: int = 0, mutate=None, inputs=None,
-            prefix_fault=None) -> float:
+            prefix_fault=None, decode=None) -> float:
     """bf16 prefill(prefill_len) + teacher-forced decode steps against
     prefill of all of ``tokens``: relative L2 of the last logits.
     ``inputs``: the image embeddings or frames both prefills take; decode
     positions start after the image prefix.  ``mutate`` plants a fault in
     the caches the decode starts from, ``prefix_fault`` (a context
-    manager) one in the shorter prefill alone."""
+    manager) one in the shorter prefill alone, ``decode`` (a faulty
+    ``decode_step``) one in the decode."""
+    decode = decode or model.decode_step
     n = tokens.shape[1]
     inputs = inputs or {}
     n_img = model.cfg.n_img_tokens
@@ -83,7 +94,7 @@ def handoff(model, tokens, prefill_len: int, pos_shift: int = 0, mutate=None, in
             caches = mutate(caches)
         for t in range(prefill_len, n):
             pos = torch.tensor([n_img + t + pos_shift], dtype=torch.int32)
-            step, caches = model.decode_step(caches, tokens[:, t:t + 1], pos)
+            step, caches = decode(caches, tokens[:, t:t + 1], pos)
     return _rel(step[0, -1], full[0, -1])
 
 
@@ -191,6 +202,70 @@ def vlm_family(width, head_dim, text=512):
     row["decode_position_one_off"] = handoff(model, tokens, text - 1, inputs=inputs,
                                              pos_shift=1)
     return row
+
+
+def _grouped_mod_kv(k, v, n_heads: int, shd=None):
+    """``attention._expand_kv`` with the groups wrong: query head h reads
+    KV head h % KV instead of h // (H / KV)."""
+    kvh = k.shape[2]
+    if kvh in (1, n_heads):
+        return _EXPAND_KV(k, v, n_heads)
+    idx = torch.arange(n_heads, device=k.device) % kvh
+    return k[:, :, idx], v[:, :, idx]
+
+
+_EXPAND_KV = attention._expand_kv
+
+
+def dense_decode_faults(model) -> dict:
+    """Faults of the dense family's decode, each a ``decode_step`` with the
+    model's signature: the decode position one off; the newest KV entry
+    dropped (every self-attention cache's entry at position pos - 1, the
+    prompt's last token, hidden); the KV heads grouped h % KV in the
+    decode's attention (prefill and decode share ``_expand_kv``, so a
+    fault planted in both would cancel)."""
+    decode = model.decode_step
+
+    def position_one_off(caches, tokens, pos):
+        return decode(caches, tokens, pos + 1)
+
+    def newest_kv_dropped(caches, tokens, pos):
+        for c in caches:
+            kp = c["attn"]["k_pos"]
+            kp[kp == pos[:, None] - 1] = -1
+        return decode(caches, tokens, pos)
+
+    def grouped_mod_kv(caches, tokens, pos):
+        with mock.patch.object(attention, "_expand_kv", _grouped_mod_kv):
+            return decode(caches, tokens, pos)
+
+    return {"decode position one off": position_one_off,
+            "newest KV entry dropped": newest_kv_dropped,
+            "grouped heads mapped h % KV": grouped_mod_kv}
+
+
+DENSE_ARCHS = ("qwen3-1.7b", "qwen2-7b", "granite-3-8b", "minitron-8b")
+
+
+def dense_family(width, head_dim, n=1024):
+    rows = []
+    for arch in DENSE_ARCHS:
+        full = get_config(arch)
+        cfg = full.reduced().replace(
+            n_layers=full.n_layers, d_model=width, head_dim=head_dim, n_heads=full.n_heads,
+            n_kv_heads=full.n_kv_heads, d_ff=2 * width, dtype="bfloat16",
+            param_dtype="bfloat16")
+        model, ref = _models(cfg)
+        tokens = _tokens(cfg, n)
+        row = dict(family="dense", arch=arch, width=width, layers=cfg.n_layers,
+                   heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, S=n,
+                   bf16_vs_f32=_drift(model, ref, tokens),
+                   consistency=handoff(model, tokens, n - 1))
+        for fault, step in dense_decode_faults(model).items():
+            row[fault.replace(" ", "_").replace("%", "mod")] = handoff(model, tokens, n - 1,
+                                                                        decode=step)
+        rows.append(row)
+    return rows
 
 
 def recurrentgemma(width, head_dim):
@@ -333,7 +408,7 @@ def xlstm_family(width, _head_dim, prefill_len=4096, steps=256):
 
 WIDTHS = {64: 16, 256: 64}  # width: head dim
 FAMILIES = {"recurrentgemma": recurrentgemma, "moe": moe_family, "xlstm": xlstm_family,
-            "whisper": whisper_family, "vlm": vlm_family}
+            "whisper": whisper_family, "vlm": vlm_family, "dense": dense_family}
 
 
 def main() -> None:
@@ -345,7 +420,9 @@ def main() -> None:
     for name, fn in FAMILIES.items():
         if args.family in (name, "all"):
             for width in args.width or sorted(WIDTHS):
-                print(json.dumps(fn(width, WIDTHS[width])), flush=True)
+                rows = fn(width, WIDTHS[width])
+                for row in rows if isinstance(rows, list) else [rows]:
+                    print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":
