@@ -102,12 +102,28 @@ one JSON line; any failure exits non-zero:
    against the CPU, with a float32 handoff that must reject all three
    faults.  Before it and before phase 4's long cases, the card bytes
    that only reference cycles hold are counted, and more than
-   ``CYCLE_BYTES_MAX`` fails.  Last, the
+   ``CYCLE_BYTES_MAX`` fails.  Then (phase 3j) the families that had
+   trained only on the CPU, at full width through ``launch.train.run``
+   (``TRAIN_FAMILIES``, 3 AdamW steps, remat "full", seeded weights, a
+   depth cut handed in as ``params``): ``phi3.5-moe-42b-a6.6b`` cut to 2
+   layers (2 x 4,096 tokens, the tokens each expert took in step 0),
+   ``phi-3-vision-4.2b`` cut to ``VLM_TRAIN_LAYERS`` (2 x (576 zero image
+   embeddings + 4,096 tokens)), ``whisper-small`` whole (32 x 448 tokens
+   over 32 x 1,500 frames, the published 448-row table) and
+   ``xlstm-350m`` whole (4 x 1,024 tokens): finite losses and gradient
+   norms, every step-0 gradient finite and non-zero, a peak under 75 GB,
+   ``flash_attention`` launched 2 x and its backward 1 x the attention
+   calls of a forward each step; each path's layer-0 attention forward
+   and backward (whisper's encoder, decoder and cross-attention apart)
+   held against the plain versions over every head of every sequence,
+   the plain versions run a few heads at a time (``per_heads``); and
+   each family's reduced float32 config trained 6 steps on the card and
+   on the CPU from the same weights, losses within 1e-4.  Last, the
    roofline of every timed path (each serving path's prefill and decode
    step, the training steps): its step dry-run on meta tensors at the same
-   depth, batch and length (``repro_torch.launch.dryrun.dry_run``, in two
+   depth, batch and length (``repro_torch.launch.dryrun.dry_run``, in
    child processes of this script started before phase 3, ``--dry-runs``),
-   and a third child, ``MESH_DRY_RUN`` (``recurrentgemma-9b train_4k``)
+   and another child, ``MESH_DRY_RUN`` (``recurrentgemma-9b train_4k``)
    on the reference's 16 x 16 mesh over a fake group of 256 ranks, whose
    line prints its per-device counts, its collectives and its roofline
    with the collective term (CPU counts, not device metrics);
@@ -121,7 +137,9 @@ one JSON line; any failure exits non-zero:
 4. kernels  — each kernel against its plain PyTorch version (bit for
    bit; PageRank within atol=1e-6, rtol=1e-5; attention within 2e-5 in
    float32 and 2e-2 in bf16, RG-LRU within 2e-5, the reference's kernel
-   test tolerances), on the inputs each step of the main paths gave it,
+   test tolerances), on the inputs each step of the main paths gave it
+   (phase 3j's with the plain versions a few heads at a time, each timed
+   beside SDPA's forward or backward for the same function),
    at headline shapes (the dense kernels in both of their regimes, each
    row naming the regime that ran: 0/1 stacks, a 10% dense one whose rows
    overflow the cluster kernels' row lists, and weighted asymmetric ones
@@ -192,6 +210,7 @@ the LM paths at their reduced config) and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -333,19 +352,23 @@ class Recorder:
     (``tag``) of the main path, so phase 4 can hold the kernel against its
     plain version on exactly those inputs.  ``variant`` (args, kw) -> a
     suffix of the tag keeps the first call of each kind apart (an
-    encoder-decoder's encoder, decoder and cross-attention calls)."""
+    encoder-decoder's encoder, decoder and cross-attention calls).
+    ``last`` keeps the last call instead, until ``sealed`` is set (a
+    backward pass runs the layers in reverse: its last call in step 0 is
+    layer 0's)."""
 
     def __init__(self):
         self.inputs = {}  # (kernel name, tag) -> args
         self.tag = "main path"
+        self.sealed = False
         self._undo = []
 
-    def wrap(self, mod, fn: str, name: str, variant=None):
+    def wrap(self, mod, fn: str, name: str, variant=None, last: bool = False):
         orig = getattr(mod, fn)
 
         def shim(*args, **kw):
             tag = self.tag + (variant(args, kw) if variant is not None else "")
-            if (name, tag) not in self.inputs:
+            if (name, tag) not in self.inputs or (last and not self.sealed):
                 self.inputs[(name, tag)] = ([_keep(a) for a in args], dict(kw))
             return orig(*args, **kw)
 
@@ -356,6 +379,7 @@ class Recorder:
         for mod, fn, orig in self._undo:
             setattr(mod, fn, orig)
         self._undo.clear()
+        self.sealed = False
 
 
 def _keep(a):
@@ -1184,6 +1208,42 @@ def _train_kernels(recorder, tag):
     return read
 
 
+@contextlib.contextmanager
+def observed_updates(device, on_update=None):
+    """AdamW's ``update`` observed as it is called, for the duration:
+    yields a list that gets, each step, each parameter's gradient norm
+    before the clip (``names``, ``norms``), the clipped global norm, the
+    learning rate and the time the step ended (the card synchronized).
+    ``on_update`` is called after each step."""
+    from repro_torch.optim import adamw
+
+    steps, orig = [], adamw.update
+
+    def observed_update(grads, state, params, ocfg):
+        norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                             for g in grads.values()])
+        out = orig(grads, state, params, ocfg)
+        sync(device)
+        steps.append(dict(end=time.perf_counter(), names=list(grads), norms=norms.cpu(),
+                          grad_norm=float(out[2]["grad_norm"]), lr=float(out[2]["lr"])))
+        if on_update is not None:
+            on_update()
+        return out
+
+    adamw.update = observed_update
+    try:
+        yield steps
+    finally:
+        adamw.update = orig
+
+
+def step0_without_gradient(steps) -> list:
+    """The parameters whose step-0 gradient norm is not finite and non-zero."""
+    first = steps[0]
+    return [n for n, g in zip(first["names"], first["norms"].tolist())
+            if not (math.isfinite(g) and g > 0)]
+
+
 def lm_train(device, recorder=None, reduced=False):
     """``launch.train.run`` on ``LM_ARCH`` at full width, cut to
     TRAIN_LAYERS layers, with seeded weights: TRAIN_STEPS AdamW steps on
@@ -1194,7 +1254,6 @@ def lm_train(device, recorder=None, reduced=False):
     from repro_torch.configs import get_config
     from repro_torch.launch import train as train_mod
     from repro_torch.models import lm
-    from repro_torch.optim import adamw
 
     cfg = get_config(LM_ARCH).replace(n_layers=TRAIN_LAYERS)
     batch, seq = TRAIN_BATCH, TRAIN_SEQ
@@ -1208,27 +1267,14 @@ def lm_train(device, recorder=None, reduced=False):
     sync(device)
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    steps = []
-    orig = adamw.update
-
-    def observed_update(grads, state, params, ocfg):
-        norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
-                             for g in grads.values()])
-        out = orig(grads, state, params, ocfg)
-        sync(device)
-        steps.append(dict(end=time.perf_counter(), names=list(grads), norms=norms.cpu(),
-                          grad_norm=float(out[2]["grad_norm"]), lr=float(out[2]["lr"])))
-        return out
-
     read = _train_kernels(recorder, "main path")
-    adamw.update = observed_update
     t0 = time.perf_counter()
     try:
-        _, opt_state, losses = train_mod.run(LM_ARCH, steps=TRAIN_STEPS, batch=batch, seq=seq,
-                                             reduced=reduced, seed=0, log_every=1,
-                                             device=device, params=model)
+        with observed_updates(device) as steps:
+            _, opt_state, losses = train_mod.run(LM_ARCH, steps=TRAIN_STEPS, batch=batch,
+                                                 seq=seq, reduced=reduced, seed=0, log_every=1,
+                                                 device=device, params=model)
     finally:
-        adamw.update = orig
         if recorder is not None:
             recorder.restore()
     launches = read()
@@ -1236,8 +1282,7 @@ def lm_train(device, recorder=None, reduced=False):
     ends = [t0] + [st["end"] for st in steps]
     step_s = [b - a for a, b in zip(ends, ends[1:])]
     first = steps[0]
-    bad = [n for n, g in zip(first["names"], first["norms"].tolist())
-           if not (math.isfinite(g) and g > 0)]
+    bad = step0_without_gradient(steps)
     emit(phase="main_path", check="lm train", arch=LM_ARCH, reduced=reduced,
          layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
          param_dtype=cfg.param_dtype, dtype=cfg.dtype, remat=cfg.remat, batch=batch,
@@ -1877,6 +1922,262 @@ def dense_paths(device, recorder, reduced: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3j: the other families trained at full width
+# ---------------------------------------------------------------------------
+
+# the VLM's depth: the deepest of 32, 24, 16 and 12 layers whose training
+# peak stayed under TRAIN_PEAK_MAX and whose gradients stayed finite in
+# every step on an H100 80GB (PERF.md section 4).  The peaks allow 32
+# (62.5 GB); the gradients do not: the reference's stub image embeddings,
+# zeros, stay zero rows through every layer, RMSNorm scales their
+# gradient by 1/sqrt(eps) at each norm, and it overflows to inf (0 x inf
+# = NaN in every weight's gradient) in step 0 at 32 and 24 layers and in
+# step 2 at 16 (tests/test_torch_train_families.py pins the reference
+# doing the same)
+VLM_TRAIN_LAYERS = 12
+# path -> (arch, batch, text tokens a sequence, layers or None for all):
+# each config at its published widths through ``launch.train.run``,
+# TRAIN_STEPS AdamW steps, float32 masters, bf16 activations, remat "full".
+# train moe: 2 of 32 layers, 2,863,833,088 parameters, 45.8 GB of state at
+# 16 B a parameter (3 layers need 66.6 GB); its 8,192 tokens route in 8
+# groups of 1,024, 160 slots an expert.  train vlm: 576 zero image
+# embeddings before each sequence (S = 4,672).  train audio: whisper-small
+# whole over 32 x 1,500 frames.  train ssm: xlstm-350m whole, its length cut
+# from 4,096 to 1,024 (the sLSTM steps through the sequence on the host).
+TRAIN_FAMILIES = {"train moe": (MOE_ARCH, 2, 4096, 2),
+                  "train vlm": (VLM_ARCH, 2, 4096, VLM_TRAIN_LAYERS),
+                  "train audio": (AUDIO_ARCH, 32, 448, None),
+                  "train ssm": (XLSTM_ARCH, 4, 1024, None)}
+# whisper's published decoder context: the rows of its learned table
+AUDIO_MAX_SEQ = 448
+TRAIN_PEAK_MAX = 75e9
+# each family's reduced config (float32) on the card and on the CPU
+FAMILY_REDUCED_TRAIN = dict(steps=6, batch=4, seq=32, seed=0, log_every=100)
+
+
+def train_family_shape(path: str, reduced: bool) -> tuple:
+    """(config, batch, text tokens, learned table rows) of a phase-3j
+    path: the full config cut to its depth, or (``reduced``, the CPU
+    rehearsal) the reduced config at that depth, batch 2 of 64 tokens."""
+    from repro_torch.configs import get_config
+
+    arch, batch, seq, layers = TRAIN_FAMILIES[path]
+    cfg = get_config(arch)
+    if reduced:
+        cfg, batch, seq = cfg.reduced(), 2, 64
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    return cfg, batch, seq, AUDIO_MAX_SEQ if cfg.pos_kind == "learned" else 0
+
+
+def train_family(device, path: str, recorder=None, reduced: bool = False) -> dict:
+    """``launch.train.run`` on a TRAIN_FAMILIES path with seeded weights
+    (``lm.init(seed=0)``; a depth cut handed in as ``params``): TRAIN_STEPS
+    steps of ``SyntheticLM(seed=0)`` with ``run``'s stub inputs.  Checks:
+    finite losses, every parameter's step-0 gradient finite and non-zero,
+    a peak under TRAIN_PEAK_MAX and, on the card, the attention kernels
+    launched 2 x and their backward 1 x the forward's attention calls a
+    step (remat "full"), no RG-LRU launch.  The recorder keeps layer 0's
+    forward and backward call of each kind.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import lm, moe
+
+    cfg, batch, seq, max_seq = train_family_shape(path, reduced)
+    arch = cfg.name
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, seed=0, device=device, max_seq=max_seq)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params, n_attn = sum(p.numel() for p in model.parameters()), attention_launches(model)
+    n_moe = sum(b.moe for b in model.layers)
+    routed, route = [], moe._route
+
+    def counting(p, x2d, c):  # the tokens each expert takes in step 0's forward
+        out = route(p, x2d, c)
+        if len(routed) < n_moe:
+            routed.append(torch.bincount(out[1].flatten(), minlength=c.n_experts))
+        return out
+
+    def seal():
+        if recorder is not None:
+            recorder.sealed = True
+
+    read = _train_kernels(None, path)
+    if recorder is not None:
+        recorder.tag = path
+        recorder.wrap(fa_ops, "flash_attention", "flash_attention", attention_call_kind)
+        recorder.wrap(fa_ops, "flash_attention_bwd", "flash_attention.bwd", attention_call_kind,
+                      last=True)
+    moe._route = counting
+    t0 = time.perf_counter()
+    try:
+        with observed_updates(device, seal) as steps:
+            _, opt_state, losses = train_mod.run(arch, steps=TRAIN_STEPS, batch=batch, seq=seq,
+                                                 reduced=reduced, seed=0, log_every=1,
+                                                 device=device, params=model)
+    finally:
+        moe._route = route
+        if recorder is not None:
+            recorder.restore()
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    ends = [t0] + [st["end"] for st in steps]
+    step_s = [b - a for a, b in zip(ends, ends[1:])]
+    bad = step0_without_gradient(steps)
+    want = {"flash_attention": 2 * n_attn * TRAIN_STEPS,
+            "flash_attention.bwd": n_attn * TRAIN_STEPS, "rglru_scan": 0, "rglru_scan.bwd": 0}
+    emit(phase="main_path", check=path, arch=arch, reduced=reduced, layers=cfg.n_layers,
+         full_depth=get_config(arch).n_layers, enc_layers=len(model.enc_layers or ()),
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.resolved_head_dim, params=n_params, param_dtype=cfg.param_dtype,
+         dtype=cfg.dtype, remat=cfg.remat, batch=batch, seq=seq,
+         n_img_tokens=cfg.n_img_tokens, enc_seq=cfg.enc_seq if cfg.is_encdec else None,
+         learned_positions=max_seq or None, steps=len(losses), losses=losses,
+         grad_norms=[st["grad_norm"] for st in steps], lrs=[st["lr"] for st in steps],
+         init_seconds=init_s, first_step_seconds=step_s[0], step_seconds=step_s[1:],
+         peak_memory_bytes=peak, peak_max=TRAIN_PEAK_MAX, launches=launches,
+         expected_launches=want, attention_calls_a_forward=n_attn,
+         tokens_per_expert_step0=[r.tolist() for r in routed] or None,
+         step0_params_with_gradient=len(steps[0]["names"]) - len(bad),
+         step0_params_without_finite_nonzero_gradient=bad,
+         step0_grad_norm_min=float(steps[0]["norms"].min()),
+         step0_grad_norm_max=float(steps[0]["norms"].max()))
+    del model, opt_state
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"{path}: losses {losses}")
+    if len(steps) != TRAIN_STEPS or bad:
+        fail(f"{path}: parameters without a finite non-zero gradient in step 0: {bad}")
+    if not all(math.isfinite(st["grad_norm"]) for st in steps):
+        fail(f"{path}: gradient norms {[st['grad_norm'] for st in steps]}")
+    if n_moe and (len(routed) != n_moe
+                  or any(int(r.sum()) != batch * seq * cfg.top_k for r in routed)):
+        fail(f"{path}: step 0 routed {[int(r.sum()) for r in routed]} (token, choice) pairs "
+             f"in its {n_moe} MoE layers, not {batch * seq * cfg.top_k} each")
+    if device.type == "cuda" and launches != want:
+        fail(f"{path} launched {launches}, not {want}")
+    if peak is not None and peak >= TRAIN_PEAK_MAX:
+        fail(f"{path}: peak {peak} bytes, over {TRAIN_PEAK_MAX}")
+    TIMED[path] = dict(seconds=statistics.median(step_s[1:]), peak_memory_bytes=peak)
+    return launches
+
+
+def train_attention(path: str, recorder, device, n_img: int = 0) -> None:
+    """The attention calls ``path`` recorded (layer 0's forward and, on the
+    card, its backward, for each kind: whisper's encoder, decoder and
+    cross-attention), each run again and held against the plain version
+    over every head of every sequence (``kernel_case`` untimed, the plain
+    versions a few heads at a time); with an image prefix of ``n_img``
+    positions, the backward also at the text positions alone
+    (``text_rows_bwd``).  The inputs stay for phase 4."""
+    kinds = sorted({tag for _, tag in recorder.inputs
+                    if tag == path or tag.startswith(path + " (")})
+    for tag in kinds:
+        for name in ("flash_attention", "flash_attention.bwd"):
+            if (name, tag) in recorder.inputs:
+                kernel_case(name, *recorder.inputs[(name, tag)], tag, recorded=True,
+                            by_head=True, timed=False)
+            elif device.type == "cuda":
+                fail(f"{path}: no {name} call of '{tag}' recorded")
+        if n_img and ("flash_attention.bwd", tag) in recorder.inputs:
+            text_rows_bwd(tag, *recorder.inputs[("flash_attention.bwd", tag)], n_img)
+
+
+def text_rows_bwd(tag, args, kw, n_img: int) -> dict:
+    """The attention backward at an image-prefix path's text positions
+    alone: dQ of the queries and dK, dV of the keys from ``n_img`` on,
+    within BWD_TOL of the plain version (and, in bf16, BWD_BF16_REF_TOL of
+    the emulation of the kernels' arithmetic) scaled by their own largest
+    values.  The zero image rows' gradient runs to 1e23 and more (ROADMAP
+    Queue 3 item 8), so limits scaled by a whole output's largest value
+    would let any text-row error through."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    dt = args[0].dtype
+    got = [g[:, :, n_img:] for g in fa_ops.flash_attention_bwd(*args, **kw)]
+    refs = {"plain": (per_heads(fa_ref.attention_bwd_ref), BWD_TOL[dt])}
+    if dt == torch.bfloat16:
+        refs["bf16_ref"] = (fa_ref.attention_bwd_bf16_ref, BWD_BF16_REF_TOL)
+    out = {}
+    for what, (fn, tol) in refs.items():
+        want = [w[:, :, n_img:].to(dt) for w in fn(*args, **kw)]
+        lims = [scaled(tol, w) for w in want]
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        out[what] = dict(max_abs_err=err, limits=[lim["atol"] for lim in lims],
+                         max_abs_ref=[float(w.float().abs().max()) for w in want])
+        if not all(torch.allclose(g.float(), w.float(), **lim)
+                   for g, w, lim in zip(got, want, lims)):
+            fail(f"flash_attention.bwd ({tag}) at the text positions outside {lims} of "
+                 f"{what}: max err {err}")
+    emit(phase="main_path", check=f"{tag} flash_attention.bwd vs plain (text positions)",
+         positions_from=n_img, **out)
+    return out
+
+
+def family_train_reduced(device, arch: str) -> None:
+    """``arch``'s reduced config (float32, so the float32 attention kernels
+    and their backward run in the family's layouts) for 6 steps on the
+    card and on the CPU from the same weights: losses within
+    TRAIN_CARD_VS_CPU_RTOL (relative); on the card the attention kernels
+    and their backward launched once an attention call a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+    from repro_torch.models import lm
+
+    cfg = get_config(arch).reduced()
+    card = lm.init(cfg, seed=3, device=device,
+                   max_seq=AUDIO_MAX_SEQ if cfg.pos_kind == "learned" else 0)
+    state = {k: v.detach().to("cpu", copy=True) for k, v in card.state_dict().items()}
+    n_attn = attention_launches(card)
+    read = _train_kernels(None, "")
+    t0 = time.perf_counter()
+    _, _, losses = run(arch, **FAMILY_REDUCED_TRAIN, device=device, params=card)
+    t1 = time.perf_counter()
+    launches = read()
+    _, _, host = run(arch, **FAMILY_REDUCED_TRAIN, device="cpu", params=state)
+    rel = float((np.abs(np.asarray(host) - losses) / np.abs(host)).max())
+    want = {"flash_attention": n_attn * FAMILY_REDUCED_TRAIN["steps"],
+            "flash_attention.bwd": n_attn * FAMILY_REDUCED_TRAIN["steps"],
+            "rglru_scan": 0, "rglru_scan.bwd": 0}
+    emit(phase="main_path", check="train reduced card vs cpu", arch=arch, layers=cfg.n_layers,
+         dtype=cfg.dtype, **{k: v for k, v in FAMILY_REDUCED_TRAIN.items() if k != "log_every"},
+         losses=losses, cpu_losses=host, card_vs_cpu_max_rel_diff=rel,
+         rtol=TRAIN_CARD_VS_CPU_RTOL, card_seconds=t1 - t0,
+         cpu_seconds=time.perf_counter() - t1, launches=launches)
+    if not (len(losses) == len(host) and rel <= TRAIN_CARD_VS_CPU_RTOL):
+        fail(f"train reduced {arch}: card vs CPU losses differ by {rel} (relative)")
+    if device.type == "cuda" and launches != want:
+        fail(f"train reduced {arch} launched {launches}, not {want}")
+
+
+def train_families(device, recorder=None, reduced: bool = False) -> dict:
+    """Phase 3j: each TRAIN_FAMILIES path (``train_family``), its layer-0
+    attention held against the plain version (``train_attention``); then
+    (on the card) each family's reduced config card against CPU.  Returns
+    each path's launches."""
+    t0 = time.perf_counter()
+    launches = {}
+    for path in TRAIN_FAMILIES:
+        launches[path] = train_family(device, path, recorder, reduced)
+        if recorder is not None:
+            train_attention(path, recorder, device,
+                            train_family_shape(path, reduced)[0].n_img_tokens)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if device.type == "cuda":
+        for arch, *_ in TRAIN_FAMILIES.values():
+            family_train_reduced(device, arch)
+    emit(phase="main_path", check="train families phase", seconds=time.perf_counter() - t0,
+         layers={path: layers for path, (_, _, _, layers) in TRAIN_FAMILIES.items()})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 3g: the roofline of every timed path
 # ---------------------------------------------------------------------------
 
@@ -1887,10 +2188,12 @@ TIMED: dict = {}
 # a card that beats the roofline of its own step means the count is wrong
 ROOFLINE_SHARE_MAX = 1.05
 # the xLSTM prefill's dry run steps through 6 sLSTM layers x 4,096 cells on
-# meta, minutes of host time: it runs in a process of its own beside
-# another for every other path, both started before phase 3 and read after
-SLOW_DRY_RUNS = ("ssm serve prefill",)
-# a third child: one training step on the reference's 16 x 16 mesh
+# meta, minutes of host time, and its training step through 1,024 cells
+# three times (forward, remat, backward): each runs in a process of its
+# own beside another for every other path, all started before phase 3 and
+# read after
+SLOW_DRY_RUNS = ("ssm serve prefill", "train ssm")
+# another child: one training step on the reference's 16 x 16 mesh
 MESH_DRY_RUN = (LM_ARCH, "train_4k")
 DRY_RUN_TIMEOUT_S = 900
 
@@ -1937,6 +2240,10 @@ def roofline_paths(reduced: bool = False) -> dict:
             name = f"dense serve {arch} {kind}"
             paths[name] = (cfg, ShapeConfig(name, prompt, batch, kind), prompt + LM_GEN + 8,
                            prompt + LM_GEN + 8)
+    for path in TRAIN_FAMILIES:  # a step's length counts the image prefix
+        cfg, batch, seq, max_seq = train_family_shape(path, reduced)
+        paths[path] = (cfg, ShapeConfig(path, cfg.n_img_tokens + seq, batch, "train"), 0,
+                       max_seq)
     return paths
 
 
@@ -1966,16 +2273,16 @@ def dry_runs(names, reduced: bool) -> int:
 
 
 def start_dry_runs(reduced: bool = False) -> list:
-    """Start the dry runs of every timed path in two child processes, and
-    MESH_DRY_RUN in a third (no card: meta tensors only), so their host
+    """Start the dry runs of every timed path in child processes (one for
+    each of SLOW_DRY_RUNS, one for the rest), and MESH_DRY_RUN in another
+    (no card: meta tensors only), so their host
     time overlaps phase 3's."""
     cmd = [sys.executable, str(Path(__file__).resolve())]
     if reduced:
         cmd += ["--device", "cpu"]
     names = list(roofline_paths(reduced))
-    runs = [["--dry-runs", *[n for n in names if n in SLOW_DRY_RUNS]],
-            ["--dry-runs", *[n for n in names if n not in SLOW_DRY_RUNS]],
-            ["--mesh-dry-run"]]
+    runs = [["--dry-runs", n] for n in SLOW_DRY_RUNS] + [
+        ["--dry-runs", *[n for n in names if n not in SLOW_DRY_RUNS]], ["--mesh-dry-run"]]
     return [subprocess.Popen(cmd + args, stdout=subprocess.PIPE,
                              stderr=subprocess.PIPE, text=True, cwd=ROOT,
                              env=dict(os.environ, OMP_NUM_THREADS="1"))
@@ -2268,12 +2575,44 @@ def attention_ops_peak(ops, dtype) -> tuple:
     return 3 * ops, TF32_OPS_PER_S
 
 
-def kernel_case(name, args, kw, tag, tol=None, recorded=False):
+# float32 scores a plain attention call may hold at once where it runs a
+# few heads at a time (``per_heads``): 512 MiB
+PLAIN_SCORES_MAX = 1 << 27
+
+
+def per_heads(fn):
+    """A plain attention function of (q, k, v, ...) run on one sequence and
+    as many heads as keep its (query, key) scores within PLAIN_SCORES_MAX,
+    its outputs put back together: whole, the plain versions hold every
+    score in float32 several times over, more than the card holds at a
+    training path's shapes.  Positions (1-D) are shared; every tensor of
+    3 or more axes is sliced by sequence and head."""
+    def run(q, k, *rest, **kw):
+        B, H, Sq, _ = q.shape
+        n = max(1, PLAIN_SCORES_MAX // (Sq * k.shape[2]))
+        rows = []
+        for b in range(B):
+            parts = [fn(*(t[b:b + 1, h:h + n] if torch.is_tensor(t) and t.dim() >= 3 else t
+                          for t in (q, k, *rest)), **kw) for h in range(0, H, n)]
+            if isinstance(parts[0], tuple):
+                rows.append(tuple(torch.cat(o, 1) for o in zip(*parts)))
+            else:
+                rows.append(torch.cat(parts, 1))
+        if isinstance(rows[0], tuple):
+            return tuple(torch.cat(o, 0) for o in zip(*rows))
+        return torch.cat(rows, 0)
+
+    return run
+
+
+def kernel_case(name, args, kw, tag, tol=None, recorded=False, by_head=False, timed=True):
     """Run one kernel on ``args`` against its plain version: bit-identical
     (PageRank, attention, RG-LRU: within their tolerance, or ``tol``, and
     the same bits on a second run) or fail; returns the times, bound and
     error.  ``recorded``: ``args`` are inputs a main path gave the kernel
-    (see ``planted_faults``)."""
+    (see ``planted_faults``).  ``by_head``: the plain attention versions
+    run a few heads at a time (``per_heads``).  Without ``timed`` the case
+    is only held (a ``main_path`` line, no times)."""
     from repro_torch.kernels.delta_overlay import ops as ov_ops
     from repro_torch.kernels.delta_overlay import ref as ov_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -2288,6 +2627,7 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False):
     from repro_torch.kernels.temporal_pagerank import ref as pr_ref
 
     library, peak, grad = {}, TF32_OPS_PER_S, False
+    split = per_heads if by_head else (lambda fn: fn)
     if name == "delta_overlay.overlay":
         kern, plain = ov_ops.overlay, ov_ref.overlay_ref
         ops, nbytes = 0, overlay_bytes(args, batch=False)
@@ -2327,7 +2667,7 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False):
         tol = tol or ATTN_TOL[q.dtype]
 
         def plain(*a, **k):
-            return fa_ref.attention_ref(*a, **k).to(a[0].dtype)
+            return split(fa_ref.attention_ref)(*a, **k).to(a[0].dtype)
 
         ops, nbytes, pairs = attention_work(*args, **kw)
         ops, peak = attention_ops_peak(ops, q.dtype)
@@ -2343,7 +2683,7 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False):
         tol = tol or BWD_TOL[q.dtype]
 
         def plain(*a, **k):
-            return tuple(g.to(a[0].dtype) for g in fa_ref.attention_bwd_ref(*a, **k))
+            return tuple(g.to(a[0].dtype) for g in split(fa_ref.attention_bwd_ref)(*a, **k))
 
         ops, nbytes, pairs = attention_bwd_work(*args, **kw)
         ops, peak = attention_ops_peak(ops, q.dtype)
@@ -2371,7 +2711,7 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False):
         shape = dict(B=B, S=S, W=W, chunk=rg_ops.CHUNK)
 
     got = kern(*args, **kw)
-    torch.cuda.synchronize()
+    sync(args[0].device)
     want = plain(*args, **kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -2399,7 +2739,11 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False):
             extra.update(limits=[lim["atol"] for lim in lims],
                          planted=planted_faults(name, tag, args, kw, got, want, lims, plain,
                                                 recorded))
-    extra.update(decomposition_check(name, tag, args, kw, got))
+    extra.update(decomposition_check(name, tag, args, kw, got, split))
+    if not timed:
+        row = dict(shape=shape, max_abs_err=err, **extra)
+        emit(phase="main_path", check=f"{tag} {name} vs plain", by_head=by_head, **row)
+        return row
     ops_ms, bytes_ms = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms > bytes_ms else "bytes"
@@ -2498,7 +2842,7 @@ def bf16_forward_check(tag, args, kw, got, want, plain, recorded) -> dict:
     return out
 
 
-def decomposition_check(name, tag, args, kw, got) -> dict:
+def decomposition_check(name, tag, args, kw, got, split=lambda fn: fn) -> dict:
     """The redesigned kernels against the plain emulation of their own
     decomposition: ``overlay`` bit for bit against ``overlay_seeded_ref``
     (its walk: step 1 in full, invalid layers skipped from step 2 on),
@@ -2510,7 +2854,8 @@ def decomposition_check(name, tag, args, kw, got) -> dict:
     outputs within BWD_BF16_REF_TOL of ``attention_bwd_bf16_ref``; the
     float32 attention forward and backward within F32_REF_TOL of
     ``attention_3xtf32_ref`` / ``attention_bwd_3xtf32_ref``, where the same
-    limits must reject the one-term TF32 emulation at D = 256."""
+    limits must reject the one-term TF32 emulation at D = 256.  ``split``
+    wraps ``lse_ref`` (``per_heads``)."""
     if name in ("flash_attention", "flash_attention.bwd") and args[0].dtype == torch.float32:
         out = tf32_check(name, tag, args, kw, got)
         if name == "flash_attention":
@@ -2558,7 +2903,7 @@ def decomposition_check(name, tag, args, kw, got) -> dict:
         from repro_torch.kernels.flash_attention import ref as fa_ref
 
         q, k, _, q_pos, k_pos, _, lse, _ = args
-        want = fa_ref.lse_ref(q, k, q_pos, k_pos, **kw)
+        want = split(fa_ref.lse_ref)(q, k, q_pos, k_pos, **kw)
         finite = torch.isfinite(want)
         if not torch.equal(torch.isfinite(lse), finite):
             fail(f"{name} ({tag}): the forward's lse is -inf on other rows than lse_ref's")
@@ -3163,6 +3508,7 @@ def main() -> int:
             train_examples(torch.device("cpu"))
             full_width_example(torch.device("cpu"), reduced=True)
             dense_paths(torch.device("cpu"), Recorder(), reduced=True)
+            train_families(torch.device("cpu"), Recorder(), reduced=True)
             roofline_phase(read_dry_runs(procs), reduced=True)
         finally:
             stop(procs)
@@ -3234,6 +3580,9 @@ def main() -> int:
         torch.cuda.empty_cache()  # the 27.5 GB training state is gone
         # 3i. the dense family whole at decode_32k's length
         by_path.update(dense_paths(dev, recorder))
+        torch.cuda.empty_cache()
+        # 3j. the other families trained at full width
+        by_path.update(train_families(dev, recorder))
         missing = [k for k, v in launches.items() if v == 0]
         if missing:
             fail(f"kernels of the main path never launched: {missing}")
@@ -3255,7 +3604,8 @@ def main() -> int:
         others = [(tag, a, kw, None, True) for (n, tag), (a, kw) in recorder.inputs.items()
                   if n == kname and tag != "main path"]
         others += [(tag, a, kw, tol, False) for n, tag, a, kw, tol in headlines if n == kname]
-        headline = {tag: kernel_case(kname, a, kw, tag, tol, rec)
+        headline = {tag: kernel_case(kname, a, kw, tag, tol, rec,
+                                     by_head=tag.split(" (")[0] in TRAIN_FAMILIES)
                     for tag, a, kw, tol, rec in others}
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=launches[kname],

@@ -198,7 +198,7 @@ def test_chip_smoke_roofline_phase(capsys, monkeypatch):
     finally:
         chip_smoke.stop(procs)
     paths = chip_smoke.roofline_paths(reduced=True)
-    assert set(recs) == set(paths) | {"mesh"} and len(paths) == 20  # 8 of the dense family
+    assert set(recs) == set(paths) | {"mesh"} and len(paths) == 24  # 8 dense, 4 train families
     timed = {name: dict(seconds=0.5, peak_memory_bytes=None) for name in paths}
     monkeypatch.setattr(chip_smoke, "TIMED", timed)
     chip_smoke.roofline_phase(recs, reduced=True)

@@ -88,6 +88,10 @@ ATTN_CASES = [
     (2, 2, 70, 200, 128, True, 64, False, torch.bfloat16, True),  # cross: Sq < Sk
     (1, 2, 64, 256, 64, False, 0, False, torch.bfloat16, False),
     (2, 2, 1, 96, 32, True, 0, False, torch.bfloat16, False),  # a single query
+    # D = 96 (the VLM's head dim) on the DP = 128 kernels: 32 padding columns
+    (2, 3, 150, 150, 96, True, 0, False, torch.bfloat16, False),
+    (1, 2, 100, 230, 96, False, 0, False, torch.bfloat16, False),  # Sq != Sk, ragged Sk
+    (2, 2, 90, 300, 64, False, 0, False, torch.bfloat16, False),  # cross, Sk % 64 != 0
 ]
 
 

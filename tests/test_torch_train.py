@@ -6,8 +6,9 @@ window 32 < S), ``qwen3-1.7b`` (qk-norm, full causal attention),
 ``xlstm-350m`` (mLSTM and sLSTM blocks), with the reference's weights
 carried over, leaf by leaf within 1e-4 * max(1, max|g_ref|), with and
 without ``remat="full"``; ``remat="dots"`` against both; three AdamW
-updates within 1e-6; the port's ``run`` against the reference's (12
-steps) within rtol 1e-4; ``GraphWalkLM`` over the port's TGI against the
+updates within 1e-6; the port's ``run`` against the reference's
+(``qwen3-1.7b`` 12 steps, ``phi3.5-moe`` and ``xlstm-350m`` 6) within
+rtol 1e-4; ``GraphWalkLM`` over the port's TGI against the
 reference's tokens; and the guards."""
 import dataclasses
 
@@ -149,18 +150,23 @@ def test_adamw_three_updates_match_reference():
     assert int(p_state["count"]) == int(r_state["count"]) == 3
 
 
-def test_run_matches_reference_run():
-    """Reduced qwen3-1.7b, batch 4, seq 32, seed 11, 12 steps: the port
-    with the reference's initial weights gives the reference's losses."""
-    kw = dict(arch="qwen3-1.7b", steps=12, batch=4, seq=32, seed=11, log_every=100)
+@pytest.mark.parametrize("arch,steps", [("qwen3-1.7b", 12), ("phi3.5-moe-42b-a6.6b", 6),
+                                        ("xlstm-350m", 6)])
+def test_run_matches_reference_run(arch, steps):
+    """Reduced qwen3-1.7b (12 steps), phi3.5-moe (the routing, capacity,
+    dispatch and aux loss under training) and xlstm-350m (the chunkwise
+    mLSTM and the sLSTM loop) (6 steps), batch 4, seq 32, seed 11: the
+    port with the reference's initial weights gives the reference's
+    losses."""
+    kw = dict(arch=arch, steps=steps, batch=4, seq=32, seed=11, log_every=100)
     _, _, want = ref_train.run(**kw)
-    cfg = get_config("qwen3-1.7b").reduced()
+    cfg = get_config(arch).reduced()
     params = jax.tree.map(np.asarray, split_tree(
         ref_lm.init(jax.random.PRNGKey(11), cfg, max_seq=4 * 32))[0])
-    pcfg = port_config("qwen3-1.7b").reduced()
+    pcfg = port_config(arch).reduced()
     model, opt_state, got = port_train.run(
         **kw, device="cpu", params=carry.lm_params_from_arrays(pcfg, params))
-    assert len(got) == 12 and int(opt_state["count"]) == 12
+    assert len(got) == steps and int(opt_state["count"]) == steps
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert all(p.requires_grad and p.grad is not None for p in model.parameters())
 
