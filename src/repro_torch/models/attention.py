@@ -24,6 +24,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch import obs
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import position_mask
 from repro_torch.models.common import Init, apply_rope, rms_norm, rope_tables, softcap
@@ -255,18 +256,19 @@ def init_attn_cache(cfg, batch: int, seq_len: int, device, model_axis: int = 1,
 
 def _decode_mha(k, v, q, k_pos, pos, window: int, logit_cap: float):
     """k/v: (B, Sc, KVv, hd); q: (B, 1, H, hd); k_pos: (B, Sc) -> (B, 1, H, hd)."""
-    H, hd = q.shape[2], q.shape[3]
-    k, v = _expand_kv(k, v, H)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (hd ** -0.5)
-    if logit_cap > 0:
-        s = softcap(s, logit_cap)
-    ok = (k_pos >= 0) & (k_pos <= pos[:, None])
-    if window > 0:
-        ok = ok & (k_pos > pos[:, None] - window)
-    s = torch.where(ok[:, None, None, :], s, NEG)
-    pr = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype).float(), v.float())
-    return out.to(q.dtype)
+    with obs.span("decode_mha"):
+        H, hd = q.shape[2], q.shape[3]
+        k, v = _expand_kv(k, v, H)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (hd ** -0.5)
+        if logit_cap > 0:
+            s = softcap(s, logit_cap)
+        ok = (k_pos >= 0) & (k_pos <= pos[:, None])
+        if window > 0:
+            ok = ok & (k_pos > pos[:, None] - window)
+        s = torch.where(ok[:, None, None, :], s, NEG)
+        pr = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype).float(), v.float())
+        return out.to(q.dtype)
 
 
 def _decode_attend(q, k, v, k_pos, pos, window: int, logit_cap: float, shd: Sharder):

@@ -26,7 +26,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.models.common import Init
 from repro_torch.models.sharding import NO_SHD, Sharder
 
@@ -79,10 +81,11 @@ def _experts(xs, p: MoE, dt):
     each expert's slots of every group in one batched product."""
     G, EC, D = xs.shape
     E = p.w_gate.shape[0]
-    xe = xs.reshape(G, E, EC // E, D).transpose(0, 1).reshape(E, -1, D)
-    h = F.silu(torch.bmm(xe, p.w_gate.to(dt))) * torch.bmm(xe, p.w_up.to(dt))
-    ys = torch.bmm(h, p.w_down.to(dt))
-    return ys.reshape(E, G, EC // E, D).transpose(0, 1).reshape(G, EC, D)
+    with obs.span("moe.experts"):
+        xe = xs.reshape(G, E, EC // E, D).transpose(0, 1).reshape(E, -1, D)
+        h = F.silu(torch.bmm(xe, p.w_gate.to(dt))) * torch.bmm(xe, p.w_up.to(dt))
+        ys = torch.bmm(h, p.w_down.to(dt))
+        return ys.reshape(E, G, EC // E, D).transpose(0, 1).reshape(G, EC, D)
 
 
 def _einsum_group(x_g, w_g, idx_g, pos_g, p: MoE, cfg, dt):
@@ -129,6 +132,19 @@ def _scatter_group(x_g, w_g, idx_g, pos_g, p: MoE, cfg, dt):
 _DISPATCH = {"einsum": _einsum_group, "scatter": _scatter_group}
 
 
+def _count_routing(idx, pos, cfg, g: int) -> None:
+    """The routing counters (``repro_torch.obs``) of one call: the (token,
+    choice) pairs routed, the slots computed, and per expert the pairs
+    dropped at capacity, summed on the device.  idx, pos: (G, g, k)."""
+    G, _, k = idx.shape
+    E, C = cfg.n_experts, _capacity(cfg, g)
+    obs.count("moe.routed", G * g * k)
+    obs.count("moe.slots", G * E * C)
+    dropped = torch.zeros(E, dtype=torch.int64, device=idx.device)
+    obs.count("moe.dropped", dropped.scatter_add_(0, idx.reshape(-1),
+                                                  (pos >= C).reshape(-1).long()))
+
+
 def routed_tokens(x, shd: Sharder = NO_SHD):
     """x: (B, S, D) -> the tokens (B * S, D), placed by batch.  The second
     constraint is a no-op forward; backward, it brings the tokens'
@@ -166,6 +182,9 @@ def moe_forward(p: MoE, x, cfg, impl: str = None, shd: Sharder = NO_SHD):
     # reference's vmap over groups): DTensor's cumsum over a sharded
     # dimension scans each rank's shard alone
     pos = shd.local(_positions_in_expert, (idx,), (0,), cfg.n_experts)
-    out = _DISPATCH[impl](xg, weights.view(G, g, k), idx, pos, p, cfg, dt)
+    if obs.recording() and not isinstance(pos, DTensor):
+        _count_routing(idx, pos, cfg, g)
+    with obs.span("moe.dispatch"):
+        out = _DISPATCH[impl](xg, weights.view(G, g, k), idx, pos, p, cfg, dt)
     out = shd.act(out, "batch", None, "act_embed")
     return out.reshape(B, S, D), aux

@@ -26,8 +26,7 @@ Three engines live here:
 
 ``ReplayCache`` is the small LRU the plan executor keys on
 ``(operand identity, timepoints)`` so repeated slices of the same
-operand don't replay at all.  ``STATS`` counts engine invocations —
-tests use it to assert a multi-timepoint plan issues exactly one replay.
+operand don't replay at all.
 """
 from __future__ import annotations
 
@@ -42,12 +41,6 @@ from repro_torch.core.events import EDGE_ADD, EDGE_DEL, NATTR_SET, NODE_ADD, NOD
 from repro_torch.core.snapshot import GraphState, pack_edge_key
 from repro_torch.taf.son import SoN, SoTS
 
-# engine invocation counters (reset freely in tests)
-STATS: Dict[str, int] = {
-    "state_at_many": 0,
-    "edge_tables_built": 0,
-    "exist_matrix": 0,
-}
 
 _T_NEG_INF = np.iinfo(np.int64).min
 
@@ -91,7 +84,6 @@ def state_at_many(son: SoN, ts) -> Tuple[np.ndarray, np.ndarray]:
     (node, bucket) [presence] / (node, key, bucket) [attrs] + a forward
     fill along the sorted time axis replaces the per-timepoint rescan.
     """
-    STATS["state_at_many"] += 1
     N = len(son)
     K = son.init_attrs.shape[1]
     ts, tss, order = _sorted_axis(ts)
@@ -179,7 +171,6 @@ class EdgeReplay:
     """
 
     def __init__(self, sots: SoTS):
-        STATS["edge_tables_built"] += 1
         N = len(sots)
         em = (sots.ev_kind == EDGE_ADD) | (sots.ev_kind == EDGE_DEL)
         eidx = np.nonzero(em)[0]
@@ -222,7 +213,6 @@ class EdgeReplay:
     def exist_matrix(self, ts) -> np.ndarray:
         """(n_pairs, T) int8 — pair existence at each requested timepoint
         (columns follow the caller's ``ts`` order)."""
-        STATS["exist_matrix"] += 1
         ts, tss, order = _sorted_axis(ts)
         T = len(ts)
         if self.n_pairs == 0 or T == 0:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models import lm
 from repro_torch.models.sharding import NO_SHD, Sharder
 from repro_torch.optim import adamw
@@ -96,7 +97,7 @@ def make_serve_step(shd: Sharder = NO_SHD):
     (next_token (B,) int32, logits, caches)."""
 
     def serve_step(model, caches, tokens, pos):
-        with shd.scope():
+        with obs.span("serve_step"), shd.scope():
             logits, caches = model.decode_step(caches, tokens, pos, shd)
             return _next_token(logits, shd), logits, caches
 

@@ -32,6 +32,20 @@ COPIES = [
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro\.", re.M)
 
 
+def _replay_without_stats(text: str) -> str:
+    """The port's ``taf/replay.py`` leaves out the reference's ``STATS``
+    counters (its docstring sentence, the dict and the three increments):
+    nothing of the port reads them."""
+    text = text.replace("  ``STATS`` counts engine invocations \u2014\ntests use it to assert a "
+                        "multi-timepoint plan issues exactly one replay.\n", "\n")
+    text = re.sub(r"# engine invocation counters.*?\n}\n", "", text, flags=re.S)
+    return re.sub(r"^ *STATS\[\"\w+\"\] \+= 1\n", "", text, flags=re.M)
+
+
+# copies the port edits on purpose: the edit, applied to the reference's text
+EDITED = {"taf/replay.py": _replay_without_stats}
+
+
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import importlib, pkgutil, sys, repro_torch\n"
@@ -111,4 +125,8 @@ def test_no_jax_or_repro_import(path):
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_has_not_drifted(rel):
     want = _IMPORT.sub(r"\1repro_torch.", (SRC / "repro" / rel).read_text())
+    if rel in EDITED:
+        edited = EDITED[rel](want)
+        assert edited != want, f"the edit of {rel} no longer applies to the reference"
+        want = edited
     assert (PORT / rel).read_text() == want
