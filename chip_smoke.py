@@ -30,7 +30,11 @@ one JSON line; any failure exits non-zero:
    full width and depth in bf16 with seeded weights (prefill seconds,
    decode tokens/s, parameter bytes, peak memory), a batch-1 check that
    prefill(S-1) + decode_step gives prefill(S)'s last logits, and the
-   reduced config on the card against the CPU's plain versions.  Then the
+   reduced config on the card against the CPU's plain versions.  Each
+   serving path's decode attends through the ``decode_attention`` kernel,
+   launched once an attention call of each decode step, and a batch-1
+   decode step through it is held against the same step through its plain
+   version (``decode_vs_plain``, the path's handoff bound).  Then the
    MoE and xLSTM families: ``serve("phi3.5-moe-42b-a6.6b", 4, 4096, 16)``
    at full width cut to MOE_LAYERS layers (``flash_attention`` once a
    layer) and ``serve("xlstm-350m", 4, 4096, 16)`` whole (no kernel), each
@@ -74,7 +78,9 @@ one JSON line; any failure exits non-zero:
    serve prefill must launch ``flash_attention`` 12 and ``rglru_scan`` 52
    times, the training run 6, 3 (backward), 24 and 12 (backward), the
    other serving paths ``flash_attention`` once an attention layer, once
-   more a cross-attention layer and once an encoder layer.  Then the
+   more a cross-attention layer and once an encoder layer, and every
+   serving path ``decode_attention`` as often in each of its 15 decode
+   steps, the encoder's layers apart.  Then the
    examples (phase 3h): ``examples/quickstart_torch.py`` and
    ``examples/temporal_analytics_torch.py`` at their reference sizes and
    the quickstart at 200,000 events, each on the card and on the CPU in
@@ -135,9 +141,12 @@ one JSON line; any failure exits non-zero:
    (the card beating its own roofline: a miscount) or a failed dry run
    fails the run;
 4. kernels  — each kernel against its plain PyTorch version (bit for
-   bit; PageRank within atol=1e-6, rtol=1e-5; attention within 2e-5 in
-   float32 and 2e-2 in bf16, RG-LRU within 2e-5, the reference's kernel
-   test tolerances), on the inputs each step of the main paths gave it
+   bit; PageRank within atol=1e-6, rtol=1e-5; attention, decode attention
+   included, within 2e-5 in float32 and 2e-2 in bf16, RG-LRU within 2e-5,
+   the reference's kernel test tolerances), on the inputs each step of the
+   main paths gave it (decode attention: each serving path's first decode
+   call, the encoder-decoder's cross-attention apart; the dense paths'
+   held in phase 3i, untimed)
    (phase 3j's with the plain versions a few heads at a time, each timed
    beside SDPA's forward or backward for the same function),
    at headline shapes (the dense kernels in both of their regimes, each
@@ -146,7 +155,12 @@ one JSON line; any failure exits non-zero:
    with negative entries and a 60% dense column, one beside a 0/1
    timepoint; motif also on an asymmetric stack with half its diagonal set; ``overlay_batch`` also on a wide snapshot group's mask,
    2 shared layers and one layer per timepoint; RG-LRU also on one
-   4097-token prompt, a ragged last chunk) and on the reference's
+   4097-token prompt, a ragged last chunk; decode attention at the decode
+   cell's shape and at the dense family's 32k decode, each beside SDPA
+   over the cache expanded to the query heads; bf16 decode attention also
+   within 2^-8 of its largest plain output, rtol 2^-7, limits a dropped
+   range of the kernel's slots and P in fp8 must miss on these inputs,
+   ``decode_forward_check``) and on the reference's
    kernel-test grid, plus a bf16
    case at each compiled head dim, the encoder-decoder and VLM shapes
    (bf16 at D = 96 causal, non-causal at S = 1500, cross-attention Sq =
@@ -180,7 +194,8 @@ one JSON line; any failure exits non-zero:
    failing if the kernel left its scratch non-zero, its row carrying each
    path's registers, shared memory and blocks an SM;
    device times from
-   CUDA events, beside the plain version's, the fastest of the PyTorch
+   CUDA events (decode attention's from ``torch.profiler``, its kernel's
+   own time), beside the plain version's, the fastest of the PyTorch
    calls that compute the same function (for attention: SDPA with the
    boolean mask, with no mask where no key is masked, with ``is_causal``
    where the mask is exactly causal; each row names the call), and the
@@ -355,7 +370,10 @@ class Recorder:
     encoder-decoder's encoder, decoder and cross-attention calls).
     ``last`` keeps the last call instead, until ``sealed`` is set (a
     backward pass runs the layers in reverse: its last call in step 0 is
-    layer 0's)."""
+    layer 0's).  ``host`` keeps the copies in host memory: a small copy
+    made on the card mid-path can pin an allocator segment through the
+    training phases (decode attention's, recorded mid-step; ``on_card``
+    brings them back)."""
 
     def __init__(self):
         self.inputs = {}  # (kernel name, tag) -> args
@@ -363,13 +381,14 @@ class Recorder:
         self.sealed = False
         self._undo = []
 
-    def wrap(self, mod, fn: str, name: str, variant=None, last: bool = False):
+    def wrap(self, mod, fn: str, name: str, variant=None, last: bool = False,
+             host: bool = False):
         orig = getattr(mod, fn)
 
         def shim(*args, **kw):
             tag = self.tag + (variant(args, kw) if variant is not None else "")
             if (name, tag) not in self.inputs or (last and not self.sealed):
-                self.inputs[(name, tag)] = ([_keep(a) for a in args], dict(kw))
+                self.inputs[(name, tag)] = ([_keep(a, host) for a in args], dict(kw))
             return orig(*args, **kw)
 
         setattr(mod, fn, shim)
@@ -382,16 +401,22 @@ class Recorder:
         self.sealed = False
 
 
-def _keep(a):
+def _keep(a, host: bool = False):
     """A copy of ``a`` with its layout: strides kept, and a stride-0 axis
-    (an expanded KV head) kept at stride 0 over one copied slice."""
+    (an expanded KV head) kept at stride 0 over one copied slice; in host
+    memory with ``host``."""
     if not torch.is_tensor(a):
         return a
     base = a.detach()
     for d, (n, s) in enumerate(zip(a.shape, a.stride())):
         if s == 0 and n > 1:
             base = base.narrow(d, 0, 1)
-    return base.clone().expand(a.shape)
+    return (base.cpu() if host else base.clone()).expand(a.shape)
+
+
+def on_card(args: list, device) -> list:
+    """Recorded inputs on ``device`` (those a ``host`` recorder kept)."""
+    return [a.to(device) if torch.is_tensor(a) else a for a in args]
 
 
 def main_path(device, n_events: int, recorder=None):
@@ -674,7 +699,9 @@ def service_path(device, local) -> None:
 
 LM_ARCH = "recurrentgemma-9b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 16
-LM_LAUNCHES = {"flash_attention": 12, "rglru_scan": 52}  # per prefill at full depth
+# at full depth: a prefill's, and decode_attention once an attention layer
+# in each of the LM_GEN - 1 decode steps
+LM_LAUNCHES = {"flash_attention": 12, "rglru_scan": 52, "decode_attention": 12 * (LM_GEN - 1)}
 # prefill(S-1) + decode_step against prefill(S), both in bf16.  bf16
 # serving of this 38-layer stack with random weights departs from its
 # own f32 answer by 2.6-3.5% (relative L2 of the last logits), and the
@@ -696,6 +723,7 @@ def lm_serve(device, recorder=None, reduced=False):
     """``serve(LM_ARCH, 4, 4096, 16)`` on ``device`` with seeded weights,
     kernel launches counted around it; then the batch-1 self-consistency
     check of prefill + decode_step against a longer prefill."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.launch import serve as serve_mod
@@ -709,21 +737,23 @@ def lm_serve(device, recorder=None, reduced=False):
     model = lm.init(cfg, seed=0, device=device)
     sync(device)
     init_s = time.perf_counter() - t0
-    kernel_ops = {"flash_attention": fa_ops, "rglru_scan": rg_ops}
+    kernel_ops = {"flash_attention": fa_ops, "rglru_scan": rg_ops, "decode_attention": dec_ops}
     if recorder is not None:
         recorder.tag = "main path"
         recorder.wrap(fa_ops, "flash_attention", "flash_attention")
         recorder.wrap(rg_ops, "rglru", "rglru_scan")
+        recorder.wrap(dec_ops, "decode_attention", "decode_attention", host=True)
     for mod in kernel_ops.values():
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
     gen, stats = serve_mod.serve(LM_ARCH, LM_BATCH, prompt, LM_GEN, reduced=reduced,
                                  seed=0, device=device, params=model)
     launches = {"flash_attention": fa_ops.LAUNCHES["flash_attention"],
-                "rglru_scan": rg_ops.LAUNCHES["rglru"]}
+                "rglru_scan": rg_ops.LAUNCHES["rglru"],
+                "decode_attention": dec_ops.LAUNCHES["decode_attention"]}
     if recorder is not None:
         recorder.restore()
-    if any(mod.LAUNCHES["bwd"] for mod in kernel_ops.values()):
+    if any(mod.LAUNCHES.get("bwd") for mod in kernel_ops.values()):
         fail("lm serve launched a backward kernel")
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
     if gen.shape != (LM_BATCH, LM_GEN) or not ((gen >= 0) & (gen < cfg.vocab_size)).all():
@@ -739,6 +769,7 @@ def lm_serve(device, recorder=None, reduced=False):
          peak_memory_bytes=peak, launches=launches, first_tokens=gen[0, :4].tolist())
     timed_serve("lm serve", stats, peak)
     lm_consistency(model, prompt)
+    decode_vs_plain(model, prompt - 1, LM_CONSISTENCY_REL, "lm decode kernel vs plain")
     return launches
 
 
@@ -823,6 +854,70 @@ def handoff_check(model, prefill_len: int, steps: int, bound: float, what: str,
     if not (rels[0] <= bound and max(rels) <= steps_bound):
         fail(f"{what}: relative L2 {rels[0]} at the first step (bound {bound}), "
              f"{max(rels)} at most (bound {steps_bound})")
+
+
+@contextlib.contextmanager
+def plain_decode_attention():
+    """Decode attention through its plain version (``decode_attention_ref``,
+    the arithmetic the kernel replaced) on any device, for the checks that
+    hold the kernel's path against it."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+
+    kernel = dec_ops.decode_attention
+    dec_ops.decode_attention = dec_ref.decode_attention_ref
+    try:
+        yield
+    finally:
+        dec_ops.decode_attention = kernel
+
+
+def decode_calls(model) -> int:
+    """``decode_attention`` calls of one decode step: one an attention
+    layer, one more a layer with cross-attention."""
+    return sum(1 + b.cross for b in model.layers if b.kind == "attn")
+
+
+def decode_vs_plain(model, prefill_len: int, bound: float, what: str, inputs=None) -> None:
+    """Batch 1: prefill(prefill_len), then one decode step from that cache
+    through the ``decode_attention`` kernel and one from a copy of it
+    through the plain version: the logits' relative L2 within ``bound``
+    (the path's handoff bound: both round in bf16, at other places) and the
+    kernel launched ``decode_calls`` times (on the CPU both are the plain
+    version and nothing launches)."""
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+
+    if not decode_calls(model):
+        return
+    dev = model.embed.device
+    n_img = model.cfg.n_img_tokens
+    tokens = handoff_tokens(model, prefill_len + 1)
+    pos = torch.tensor([n_img + prefill_len], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        _, caches = model.prefill(tokens[:, :prefill_len], cache_len=n_img + prefill_len + 8,
+                                  **(inputs or {}))
+        copy = tree_map(lambda t: t.clone() if torch.is_tensor(t) else t, caches)
+        before = dec_ops.LAUNCHES["decode_attention"]
+        got = model.decode_step(caches, tokens[:, prefill_len:], pos)[0][0, -1]
+        launched = dec_ops.LAUNCHES["decode_attention"] - before
+        with plain_decode_attention():
+            want = model.decode_step(copy, tokens[:, prefill_len:], pos)[0][0, -1]
+    del caches, copy
+    rel = step_rels(got[None], want[None])[0]
+    want_launches = decode_calls(model) if dev.type == "cuda" else 0
+    emit(phase="main_path", check=what, arch=model.cfg.name, layers=model.cfg.n_layers,
+         prefill_len=prefill_len, n_img_tokens=n_img, frontend_inputs=sorted(inputs or {}),
+         rel_l2=rel, bound=bound, margin=bound / rel if rel > 0 else None,
+         max_abs_diff=float((got - want).abs().max()), max_abs=float(want.abs().max()),
+         same_argmax=bool(got.argmax() == want.argmax()), launches=launched,
+         want_launches=want_launches)
+    if not (torch.isfinite(got).all() and rel <= bound):
+        fail(f"{what}: the kernel's decode step {rel} (relative L2) from the plain version's, "
+             f"bound {bound}")
+    if launched != want_launches:
+        fail(f"{what}: decode_attention launched {launched} times, not {want_launches}")
 
 
 def reduced_handoff(model, inputs: dict) -> dict:
@@ -989,9 +1084,11 @@ def family_serve(device, arch: str, layers=None, recorder=None, reduced=False,
     """``serve(arch, batch, prompt, 16)`` in bf16 with seeded weights at
     full width (cut to ``layers`` layers when given), the kernels' launch
     counts zeroed just before and read just after: ``flash_attention``
-    must launch ``attention_launches`` times (in the prefill; decode
-    attends in plain torch) and no other kernel at all.  ``tag`` names
+    must launch ``attention_launches`` times (in the prefill),
+    ``decode_attention`` ``decode_calls`` times in each of the LM_GEN - 1
+    decode steps, and no other kernel at all.  ``tag`` names
     the path (default "<family> serve").  Returns (model, launches)."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.launch import serve as serve_mod
@@ -1011,7 +1108,11 @@ def family_serve(device, arch: str, layers=None, recorder=None, reduced=False,
     if recorder is not None:
         recorder.tag = tag
         recorder.wrap(fa_ops, "flash_attention", "flash_attention", attention_call_kind)
-    for mod in (fa_ops, rg_ops):
+        # a cross-attention call attends the encoder's output: enc_seq slots
+        recorder.wrap(dec_ops, "decode_attention", "decode_attention",
+                      lambda args, kw: " (cross)" if cfg.is_encdec
+                      and args[0].shape[1] == cfg.enc_seq else "", host=True)
+    for mod in (fa_ops, rg_ops, dec_ops):
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
     try:
@@ -1022,11 +1123,13 @@ def family_serve(device, arch: str, layers=None, recorder=None, reduced=False,
             recorder.restore()
     launches = {"flash_attention": fa_ops.LAUNCHES["flash_attention"],
                 "flash_attention.bwd": fa_ops.LAUNCHES["bwd"],
-                "rglru_scan": rg_ops.LAUNCHES["rglru"], "rglru_scan.bwd": rg_ops.LAUNCHES["bwd"]}
+                "rglru_scan": rg_ops.LAUNCHES["rglru"], "rglru_scan.bwd": rg_ops.LAUNCHES["bwd"],
+                "decode_attention": dec_ops.LAUNCHES["decode_attention"]}
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
     want = dict.fromkeys(launches, 0)
     if device.type == "cuda":
         want["flash_attention"] = attention_launches(model)
+        want["decode_attention"] = (LM_GEN - 1) * decode_calls(model)
     emit(phase="main_path", check=tag, arch=arch, reduced=reduced, layers=cfg.n_layers,
          full_depth=full.n_layers, enc_layers=len(model.enc_layers or ()),
          enc_seq=cfg.enc_seq if cfg.is_encdec else None, n_img_tokens=cfg.n_img_tokens,
@@ -1094,6 +1197,7 @@ def family_paths(device, recorder=None, reduced=False) -> dict:
     serving path's launches."""
     model, moe_launches = family_serve(device, MOE_ARCH, MOE_LAYERS, recorder, reduced)
     moe_consistency(model)
+    decode_vs_plain(model, MOE_HANDOFF_S - 1, MOE_CONSISTENCY_REL, "moe decode kernel vs plain")
     del model
     model, xlstm_launches = family_serve(device, XLSTM_ARCH, None, recorder, reduced)
     prefill_len, steps = (XLSTM_PREFILL, XLSTM_STEPS) if not reduced else (48, 16)
@@ -1149,10 +1253,14 @@ def encdec_vlm_paths(device, recorder=None, reduced=False) -> dict:
     handoff_check(model, (AUDIO_PROMPT if not reduced else 48) - 1, 1, AUDIO_CONSISTENCY_REL,
                   "whisper prefill+decode vs prefill",
                   inputs=frontend_inputs(model.cfg, 1, device))
+    decode_vs_plain(model, (AUDIO_PROMPT if not reduced else 48) - 1, AUDIO_CONSISTENCY_REL,
+                    "whisper decode kernel vs plain", inputs=frontend_inputs(model.cfg, 1, device))
     del model
     model, vlm = family_serve(device, VLM_ARCH, None, recorder, reduced)
     handoff_check(model, (VLM_HANDOFF_TEXT if not reduced else 48) - 1, 1, VLM_CONSISTENCY_REL,
                   "vlm prefill+decode vs prefill", inputs=frontend_inputs(model.cfg, 1, device))
+    decode_vs_plain(model, (VLM_HANDOFF_TEXT if not reduced else 48) - 1, VLM_CONSISTENCY_REL,
+                    "vlm decode kernel vs plain", inputs=frontend_inputs(model.cfg, 1, device))
     del model
     return {"audio serve": audio, "vlm serve": vlm}
 
@@ -1888,8 +1996,10 @@ def dense_batch(arch: str, reduced: bool) -> int:
 def dense_paths(device, recorder, reduced: bool = False) -> dict:
     """Phase 3i: each of DENSE_ARCHS whole at ``dense_batch`` through
     ``family_serve`` (a peak of DENSE_PEAK_MAX fails), its first
-    attention call against the plain version (``dense_attention``) and its
-    handoff check; then (on the card) DENSE_REDUCED card against CPU.
+    attention call against the plain version (``dense_attention``), its
+    first decode attention call too, its handoff check and its decode step
+    through the kernel against the plain version (``decode_vs_plain``);
+    then (on the card) DENSE_REDUCED card against CPU.
     Returns each serving path's launches."""
     t0 = time.perf_counter()
     held_in_cycles("dense serve phase")
@@ -1906,10 +2016,16 @@ def dense_paths(device, recorder, reduced: bool = False) -> dict:
         if peak is not None and peak >= DENSE_PEAK_MAX:
             fail(f"{tag}: peak {peak} bytes at batch {batch}, over {DENSE_PEAK_MAX}")
         dense_attention(tag, recorder)
+        # its first decode call (layer 0, the first step) held now, not in
+        # phase 4: the recorded 32k cache would stay allocated through phase 3j
+        args, kw = recorder.inputs.pop(("decode_attention", tag))
+        kernel_case("decode_attention", on_card(args, device), kw, tag, timed=False)
         if reduced:  # float32: the bf16 bound says nothing of its faults
             dense_consistency(model, 48)
         else:
             dense_consistency(model, DENSE_HANDOFF_S, DENSE_REJECTED)
+        decode_vs_plain(model, (DENSE_HANDOFF_S if not reduced else 48) - 1,
+                        DENSE_CONSISTENCY_REL, "dense decode kernel vs plain")
         del model
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -2429,6 +2545,23 @@ def device_ms(fn, reps: int = 15) -> float:
     return statistics.median(times)
 
 
+def profiled_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: its kernels' own time from ``torch.profiler``
+    over ``reps`` calls, without the launch gaps and event records that
+    ``device_ms`` brackets (the decode kernel's ~30 us is of the order of
+    those)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    if total_us <= 0:
+        fail("torch.profiler recorded no device time")
+    return total_us / reps / 1e3
+
+
 @functools.lru_cache(maxsize=None)
 def _sleep_cycles_per_s() -> float:
     """Clock cycles per second of ``torch.cuda._sleep`` on this card."""
@@ -2565,6 +2698,33 @@ def sdpa_calls(q_pos, k_pos, causal=True, window=0) -> dict:
     return calls
 
 
+def decode_work(k, v, q, k_pos, pos, window=0, logit_cap=0.0) -> tuple:
+    """Operations and bytes decode attention needs on these inputs: 4 hd
+    per (query head, slot) pair the masks let through; the K and V rows of
+    those slots read once (each KV head once for its group), q and out
+    moved once, k_pos and pos read once.  Returns (ops, bytes, pairs)."""
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+
+    B, Sc, KV, hd = k.shape
+    visible = int(dec_ref.slot_mask(k_pos, pos, window).sum())
+    nbytes = (2 * visible * KV * hd + 2 * q.numel()) * k.element_size() \
+        + 4 * (k_pos.numel() + pos.numel())
+    return 4 * hd * q.shape[2] * visible, nbytes, q.shape[2] * visible
+
+
+def decode_sdpa(k, v, q, k_pos, pos, window=0, logit_cap=0.0):
+    """``scaled_dot_product_attention`` computing decode attention over the
+    cache expanded to the query heads beforehand (a library yardstick,
+    timed only: the expansion is not timed, the port calls neither)."""
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+
+    ke, ve = (t.transpose(1, 2).contiguous()
+              for t in dec_ref.expand_kv(k, v, q.shape[2]))
+    mask = dec_ref.slot_mask(k_pos, pos, window)[:, None, None, :]
+    return functools.partial(torch.nn.functional.scaled_dot_product_attention,
+                             q.transpose(1, 2), ke, ve, attn_mask=mask)
+
+
 def attention_ops_peak(ops, dtype) -> tuple:
     """The operations attention's bound counts and the peak rate they run
     at: bf16 products on the tensor cores at the bf16 rate; float32 ones to
@@ -2613,6 +2773,8 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False, by_head=False, ti
     (see ``planted_faults``).  ``by_head``: the plain attention versions
     run a few heads at a time (``per_heads``).  Without ``timed`` the case
     is only held (a ``main_path`` line, no times)."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention import ref as dec_ref
     from repro_torch.kernels.delta_overlay import ops as ov_ops
     from repro_torch.kernels.delta_overlay import ref as ov_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -2626,7 +2788,7 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False, by_head=False, ti
     from repro_torch.kernels.temporal_pagerank import ops as pr_ops
     from repro_torch.kernels.temporal_pagerank import ref as pr_ref
 
-    library, peak, grad = {}, TF32_OPS_PER_S, False
+    library, peak, grad, timer = {}, TF32_OPS_PER_S, False, device_ms
     split = per_heads if by_head else (lambda fn: fn)
     if name == "delta_overlay.overlay":
         kern, plain = ov_ops.overlay, ov_ref.overlay_ref
@@ -2677,6 +2839,19 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False, by_head=False, ti
         library = {call: functools.partial(torch.nn.functional.scaled_dot_product_attention,
                                            *args[:3], **sdpa_kw)
                    for call, sdpa_kw in sdpa_calls(*args[3:5], **kw).items()}
+    elif name == "decode_attention":
+        k, q = args[0], args[2]
+        kern, plain = dec_ops.decode_attention, dec_ref.decode_attention_ref
+        tol = tol or ATTN_TOL[q.dtype]
+        timer = profiled_ms
+        ops, nbytes, pairs = decode_work(*args, **kw)
+        # bf16 products on the tensor cores, float32 ones on the CUDA cores
+        peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+        B, Sc, KV, hd = k.shape
+        shape = dict(B=B, Sc=Sc, H=q.shape[2], kv_heads=KV, hd=hd, dtype=str(q.dtype),
+                     window=args[5] if len(args) > 5 else kw.get("window", 0), pairs=pairs)
+        library = {"SDPA, boolean mask, on the cache expanded to H heads":
+                   decode_sdpa(*args, **kw)}
     elif name == "flash_attention.bwd":
         q = args[0]
         kern, grad = fa_ops.flash_attention_bwd, True
@@ -2735,6 +2910,10 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False, by_head=False, ti
         extra = dict(max_abs_ref=[float(w.float().abs().max()) for w in want])
         if name == "flash_attention" and args[0].dtype == torch.bfloat16:
             extra.update(bf16_forward_check(tag, args, kw, got[0], want[0], plain, recorded))
+        if name == "decode_attention" and args[0].dtype == torch.bfloat16:
+            _, n_split, split_len = dec_ops.plan(args[2], args[0])
+            extra.update(split_plan=[n_split, split_len], **decode_forward_check(
+                tag, args, kw, got[0], want[0], split_len, recorded))
         if grad:
             extra.update(limits=[lim["atol"] for lim in lims],
                          planted=planted_faults(name, tag, args, kw, got, want, lims, plain,
@@ -2749,7 +2928,7 @@ def kernel_case(name, args, kw, tag, tol=None, recorded=False, by_head=False, ti
     bound_by = "operations" if ops_ms > bytes_ms else "bytes"
     library_all = {call: device_ms(fn) for call, fn in library.items()}
     library_call = min(library_all, key=library_all.get) if library_all else None
-    row = dict(shape=shape, max_abs_err=err, ms=device_ms(lambda: kern(*args, **kw)),
+    row = dict(shape=shape, max_abs_err=err, ms=timer(lambda: kern(*args, **kw)),
                plain_ms=device_ms(lambda: plain(*args, **kw)), bound_ms=bound_ms,
                bound_by=bound_by,
                library_ms=library_all[library_call] if library_call else None,
@@ -2838,6 +3017,47 @@ def bf16_forward_check(tag, args, kw, got, want, plain, recorded) -> dict:
         out["planted"][fault] = dict(share_of_limit=worst, rejected=worst > 1)
         if not recorded and worst <= 1:
             fail(f"flash_attention ({tag}): a kernel with '{fault}' would pass the limits "
+                 f"{lim} ({worst} of them)")
+    return out
+
+
+def decode_forward_check(tag, args, kw, got, want, split_len: int, recorded) -> dict:
+    """The bf16 decode attention within FWD_BF16_TOL (``scaled``) of its
+    plain version, as the bf16 attention forward is held: ATTN_TOL's atol,
+    2e-2, is above a typical output at the decode shapes (a mean of v over
+    thousands of slots of randn * 0.5: ~0.008, at most ~0.03).  Two faults
+    are planted and held against the same limits: the kernel's first range
+    of ``split_len`` slots dropped (the plain version with them masked) and
+    P rounded to fp8 before P V (``decode_attention_splits_ref`` at
+    ``split_len`` with P in float8_e4m3fn).  Each must be rejected on
+    synthetic inputs; on inputs a main path recorded it is reported.
+    Returns the share of the limits the kernel used at its worst element,
+    and each fault's."""
+    from repro_torch.kernels.decode_attention import ref as dec_ref
+
+    lim = scaled(FWD_BF16_TOL, want)
+    allow = lim["atol"] + lim["rtol"] * want.float().abs()
+
+    def share(out):  # the largest |out - want| over what the limits allow
+        return float(((out.float() - want.float()).abs() / allow).max())
+
+    used = share(got)
+    if used > 1:
+        fail(f"decode_attention ({tag}) outside {lim} of its plain version "
+             f"({used} of the limit at its worst element)")
+    k, v, q, k_pos, pos = args[:5]
+    window = args[5] if len(args) > 5 else kw.get("window", 0)
+    dropped = k_pos.clone()
+    dropped[:, :split_len] = -1
+    faults = {"a slot range dropped": dec_ref.decode_attention_ref(k, v, q, dropped, pos, window),
+              "P in fp8": dec_ref.decode_attention_splits_ref(
+                  k, v, q, k_pos, pos, window, split_len, p_dtype=torch.float8_e4m3fn)}
+    out = dict(decode_bf16_limits=lim, decode_bf16_share_of_limit=used, planted={})
+    for fault, faulty in faults.items():
+        worst = share(faulty)
+        out["planted"][fault] = dict(share_of_limit=worst, rejected=worst > 1)
+        if not recorded and worst <= 1:
+            fail(f"decode_attention ({tag}): a kernel with '{fault}' would pass the limits "
                  f"{lim} ({worst} of them)")
     return out
 
@@ -3150,7 +3370,25 @@ def headline_inputs(dev):
                   attention(2, 12, 1500, 1500, 64, False, 0, bf16, gen=ge),
                   attention(2, 12, 224, 1500, 64, False, 0, bf16, gen=ge),
                   cross_bwd(1, 4, 224, 1500, 64, bf16), cross_bwd(1, 4, 224, 1500, 64, f32)]
-    return lm + bwd + [f32_headline] + encdec_vlm + [
+    # decode attention at the decode cell's shape (qwen2-7b: 8 sequences,
+    # 4,168 slots, 28 heads over 4 KV heads) and at the dense family's 32k
+    # decode (qwen2-7b at DENSE_BATCH), each request half-way through its
+    # tokens: the slots past the new token's position still empty
+    gd = torch.Generator(device=dev).manual_seed(37)
+
+    def decode(B, Sc, KV, G, hd, filled):
+        k, v = ((torch.randn(B, Sc, KV, hd, generator=gd, device=dev) * 0.5).to(bf16)
+                for _ in range(2))
+        q = (torch.randn(B, 1, KV * G, hd, generator=gd, device=dev) * 0.5).to(bf16)
+        slots = torch.arange(Sc, dtype=torch.int32, device=dev)
+        k_pos = torch.where(slots < filled, slots, -1)[None].repeat(B, 1)
+        pos = torch.full((B,), filled - 1, dtype=torch.int32, device=dev)
+        return ("decode_attention", f"B={B} Sc={Sc} H={KV * G} KV={KV} hd={hd} bfloat16, "
+                f"{filled} slots filled", [k, v, q, k_pos, pos, 0, 0.0], {}, None)
+
+    decode_cases = [decode(8, 4096 + 64 + 8, 4, 7, 128, 4096 + 32),
+                    decode(DENSE_BATCH["qwen2-7b"], 32_768, 4, 7, 128, DENSE_PROMPT + 8)]
+    return lm + bwd + [f32_headline] + encdec_vlm + decode_cases + [
         (k, tag, a, {}, None) for k, tag, a in dense + [
         ("delta_overlay.overlay", "h=8 P=16 S=65536 K=4", stacks(8, 16, 65536, 4)),
         ("delta_overlay.overlay", "h=8 P=16 S=65537 K=4", stacks(8, 16, 65537, 4)),
@@ -3464,6 +3702,10 @@ SOURCES = {
     "rglru_scan": (
         "src/repro_torch/kernels/rglru_scan/rglru_scan.cu",
         "src/repro/kernels/rglru_scan/rglru_scan.py:45"),
+    # replaces no Pallas kernel: the reference computes decode attention in jnp
+    "decode_attention": (
+        "src/repro_torch/kernels/decode_attention/decode_attention.cu",
+        "none (src/repro/models/attention.py:352, _decode_mha in jnp)"),
     # the port's own backward kernels: the reference differentiates the
     # functions of these Pallas kernels by jnp autodiff
     "flash_attention.bwd": (
@@ -3600,8 +3842,9 @@ def main() -> int:
         inputs = recorder.inputs.get((kname, "main path"))
         if inputs is None:
             fail(f"no main-path inputs recorded for {kname}")
-        row = kernel_case(kname, *inputs, "main path", recorded=True)
-        others = [(tag, a, kw, None, True) for (n, tag), (a, kw) in recorder.inputs.items()
+        row = kernel_case(kname, on_card(inputs[0], dev), inputs[1], "main path", recorded=True)
+        others = [(tag, on_card(a, dev), kw, None, True)
+                  for (n, tag), (a, kw) in recorder.inputs.items()
                   if n == kname and tag != "main path"]
         others += [(tag, a, kw, tol, False) for n, tag, a, kw, tol in headlines if n == kname]
         headline = {tag: kernel_case(kname, a, kw, tag, tol, rec,

@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_ext"
 NAMES = ("delta_overlay", "temporal_motif", "temporal_pagerank", "temporal_cc",
-         "flash_attention", "rglru_scan")
+         "flash_attention", "rglru_scan", "decode_attention")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -25,6 +25,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch import obs
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention.ref import expand_kv, merge_ranges
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import position_mask
 from repro_torch.models.common import Init, apply_rope, rms_norm, rope_tables, softcap
@@ -121,16 +123,9 @@ def _repeat_virtual(k, v, cfg, model_axis: int = 1):
 
 
 def _expand_kv(k, v, n_heads: int, shd: Sharder = NO_SHD):
-    """Repeat KV heads to n_heads, consecutive grouping (q head h reads kv
-    head h // (H // KV), ``jnp.repeat``, i.e. ``repeat_interleave``).  One
-    KV head is expanded as a stride-0 view, without a copy."""
-    kvh = k.shape[2]
-    if kvh == 1 and n_heads > 1:
-        shape = (k.shape[0], k.shape[1], n_heads, k.shape[3])
-        k, v = k.expand(shape), v.expand(shape)
-    elif kvh != n_heads:
-        rep = n_heads // kvh
-        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    """Repeat KV heads to n_heads (``expand_kv``: consecutive grouping, one
+    KV head as a stride-0 view), constrained on heads."""
+    k, v = expand_kv(k, v, n_heads)
     return (shd.act(k, "batch", "kv_seq", "act_heads", "head_dim"),
             shd.act(v, "batch", "kv_seq", "act_heads", "head_dim"))
 
@@ -255,29 +250,43 @@ def init_attn_cache(cfg, batch: int, seq_len: int, device, model_axis: int = 1,
 
 
 def _decode_mha(k, v, q, k_pos, pos, window: int, logit_cap: float):
-    """k/v: (B, Sc, KVv, hd); q: (B, 1, H, hd); k_pos: (B, Sc) -> (B, 1, H, hd)."""
+    """k/v: (B, Sc, KVv, hd); q: (B, 1, H, hd); k_pos: (B, Sc) -> (B, 1, H, hd):
+    the ``decode_attention`` kernel on a CUDA tensor, its plain version
+    (``ref.decode_attention_ref``) on the CPU and on ``meta``."""
     with obs.span("decode_mha"):
-        H, hd = q.shape[2], q.shape[3]
-        k, v = _expand_kv(k, v, H)
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (hd ** -0.5)
-        if logit_cap > 0:
-            s = softcap(s, logit_cap)
-        ok = (k_pos >= 0) & (k_pos <= pos[:, None])
-        if window > 0:
-            ok = ok & (k_pos > pos[:, None] - window)
-        s = torch.where(ok[:, None, None, :], s, NEG)
-        pr = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype).float(), v.float())
-        return out.to(q.dtype)
+        return dec_ops.decode_attention(k, v, q, k_pos, pos, window, logit_cap)
+
+
+def _decode_range(k, v, q, k_pos, pos, window: int, logit_cap: float):
+    """``_decode_mha`` over a range of the cache's slots, with each row's
+    log-sum-exp after its output: (B, 1, H, hd + 1) float32."""
+    with obs.span("decode_mha"):
+        out, lse = dec_ops.decode_attention(k, v, q, k_pos, pos, window, logit_cap,
+                                            with_lse=True)
+    return torch.cat([out.float(), lse[:, None, :, None]], dim=-1)
+
+
+def _merge_ranges(parts, dtype):
+    """``_decode_range``'s results of every range, (B, R, H, hd + 1), merged
+    into the output over all the slots, (B, 1, H, hd) in ``dtype``."""
+    return merge_ranges(parts[..., :-1], parts[..., -1], dim=1).to(dtype)
 
 
 def _decode_attend(q, k, v, k_pos, pos, window: int, logit_cap: float, shd: Sharder):
-    """``_decode_mha``; over a cache sharded on batch and KV heads only, on
-    each rank's block (``Sharder.local``: decode attention is local over
-    them) rather than through DTensor's products, whose merged (batch,
-    head) dimensions the redistribute planner is slow over."""
-    if Sharder.shards(k, 1, 3):
-        return _decode_mha(k, v, q, k_pos, pos, window, logit_cap)
+    """``_decode_mha`` on each rank's block (``Sharder.local``: decode
+    attention is local over batch and KV heads), rather than through
+    DTensor's products, whose merged (batch, head) dimensions the
+    redistribute planner is slow over.  A cache sharded on its head dim is
+    gathered on it first (a score sums the whole head dim); one sharded on
+    its slots is attended a rank's range of slots at a time, each range's
+    output with its log-sum-exp, and the ranges merged
+    (``ref.merge_ranges``)."""
+    if Sharder.shards(k, 3):
+        k, v = (Sharder.like(t, k, (0, 1, 2)) for t in (k, v))
+    if Sharder.shards(k, 1):
+        parts = shd.local(_decode_range, (k, v, q, k_pos, pos),
+                          ((0, 1, 2), (0, 1, 2), (0, 2), (0, 1), (0,)), window, logit_cap)
+        return shd.local(_merge_ranges, (parts,), ((0, 2),), q.dtype)
     return shd.local(_decode_mha, (k, v, q, k_pos, pos), ((0, 2),) * 3 + ((0,),) * 2,
                      window, logit_cap)
 

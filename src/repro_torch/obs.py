@@ -21,8 +21,11 @@ thread (or on an autograd thread running its backward):
 Spans:
 
 * ``hgs:serve_step`` — ``train.steps.make_serve_step``'s step, whole.
-* ``hgs:decode_mha`` — ``models.attention._decode_mha``: the cache's
-  heads expanded, the float32 casts, both products, mask and softmax.
+* ``hgs:decode_mha`` — ``models.attention._decode_mha`` (and
+  ``_decode_range``, a rank's range of a slot-sharded cache): decode
+  attention over the cache; on the card the ``decode_attention`` kernel's
+  launch and its scratch, on the CPU its plain version (heads expanded,
+  float32 casts, both products, mask and softmax).
 * ``hgs:moe.dispatch`` — ``models.moe.moe_forward``'s dispatch, experts
   and combine; ``hgs:moe.experts`` — the expert products nested in it.
 

@@ -55,6 +55,7 @@ from repro.taf import exec as ref_exec
 from repro.train import steps as ref_steps
 from repro_torch import carry
 from repro_torch.configs import get_config
+from repro_torch.kernels.decode_attention import ref as ref_decode
 from repro_torch.launch import train as port_train
 from repro_torch.models import lm
 from repro_torch.models.sharding import Sharder
@@ -121,6 +122,29 @@ def _train_case(name):
                                "batches": batches}
 
 
+# a decode cache's placements on the (data, model) mesh: the tensor
+# dimension each mesh dimension shards (None: replicated).  Slots (1) and
+# the head dim (3) are the layouts decode attention merges or gathers.
+DECODE_LAYOUTS = {"slots on data": (1, None), "head dim on model": (None, 3),
+                  "batch on data, slots on model": (0, 1),
+                  "slots on data, head dim on model": (1, 3),
+                  "batch on data, KV heads on model": (0, 2)}
+
+
+def _decode_cache():
+    """k, v (2, 24, 2, 8), q (2, 1, 6, 8), k_pos, pos: a ring whose slots hold
+    positions in no order, the second half of sequence 0's empty (a rank's
+    whole range of slots masked), every fifth slot of sequence 1 empty."""
+    g = torch.Generator().manual_seed(3)
+    k, v = (torch.randn(2, 24, 2, 8, generator=g) for _ in range(2))
+    q = torch.randn(2, 1, 6, 8, generator=g)
+    k_pos = torch.stack([torch.roll(torch.arange(24), 5 * b) for b in range(2)]).to(torch.int32)
+    k_pos[0] = torch.where(torch.arange(24) < 12, torch.arange(24), -1)
+    k_pos[1, ::5] = -1
+    pos = torch.tensor([11, 23], dtype=torch.int32)
+    return k, v, q, k_pos, pos
+
+
 def _ckpt_trees():
     """Two saves of a model's parameters (one of them bf16) and a count."""
     cfg = get_config("recurrentgemma-9b").reduced()
@@ -158,6 +182,7 @@ def run(tmp_path_factory):
            "tm": (t0 + t1) // 2, "ts": [t0, (t0 + t1) // 2, t1],
            "train": {name: c[3] for name, c in cases.items()},
            "ckpt_trees": trees, "ckpt_axes": axes,
+           "decode": _decode_cache(), "layouts": DECODE_LAYOUTS,
            "g_same": {k: torch.from_numpy(v) for k, v in grads.items()},
            "g_diff": [{k: torch.from_numpy(v * (1 + p) + p) for k, v in grads.items()}
                       for p in range(2)]}
@@ -248,6 +273,23 @@ def test_sharded_decode_matches_unsharded(run, name):
     for out in run["outs"]:
         for got, w in zip(out["serve"][name], want):
             torch.testing.assert_close(got, w, **LM_REDUCED_TOL)
+
+
+@pytest.mark.parametrize("layout", list(DECODE_LAYOUTS))
+def test_sharded_decode_attention_layouts(run, layout):
+    """A decode cache sharded on its slots, its head dim, its batch or its
+    KV heads on the (data=2, model=2) mesh: every ``decode_attention`` call
+    gets a rank's block as a plain tensor (what the card's kernel takes),
+    and the output, with a window and without, is the unsharded plain
+    version's within float32 rounding (slot ranges merged by their
+    log-sum-exps, one of them wholly masked)."""
+    k, v, q, k_pos, pos = run["inp"]["decode"]
+    for out in run["outs"]:
+        for window in (0, 5):
+            got, calls, plain = out["decode_layouts"][(layout, window)]
+            want = ref_decode.decode_attention_ref(k, v, q, k_pos, pos, window)
+            assert calls > 0 and plain
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
 
 
 def test_restore_sharded_is_exact_on_other_meshes(run):

@@ -89,6 +89,41 @@ def serve(case, mesh):
     return logits
 
 
+def decode_layouts(inp, mesh):
+    """Decode attention (``models.attention._decode_attend``) over a cache
+    placed on the mesh in each of ``inp["layouts"]`` (a placement a mesh
+    dimension), on the CPU: its output whole, and whether every call that
+    reached ``decode_attention`` got a rank's block as a plain tensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.models import attention
+
+    k, v, q, k_pos, pos = inp["decode"]
+    kernel, seen = dec_ops.decode_attention, []
+
+    def wrapper(*args, **kw):
+        seen.append(not any(isinstance(t, DTensor) for t in args[:5]))
+        return kernel(*args, **kw)
+
+    dec_ops.decode_attention = wrapper
+    out = {}
+    try:
+        for name, layout in inp["layouts"].items():
+            pl = [Shard(d) if d is not None else Replicate() for d in layout]
+            kd, vd = (distribute_tensor(t, mesh, pl) for t in (k, v))
+            kp = distribute_tensor(k_pos, mesh, [p if not (isinstance(p, Shard) and p.dim > 1)
+                                                 else Replicate() for p in pl])
+            seen.clear()
+            for window in (0, 5):
+                got = attention._decode_attend(q, kd, vd, kp, pos, window, 0.0, Sharder(mesh))
+                got = got.full_tensor() if isinstance(got, DTensor) else got
+                out[(name, window)] = (got, len(seen), all(seen))
+    finally:
+        dec_ops.decode_attention = kernel
+    return out
+
+
 def checkpoint(inp, mesh):
     """Two unsharded saves, the second restored onto ``mesh`` and onto its
     1-D "data" sub-mesh of 2 ranks."""
@@ -135,6 +170,7 @@ def main(rank: int, world: int) -> None:
         out = {"taf": taf(inp),
                "train": {name: train(case, mesh) for name, case in inp["train"].items()},
                "serve": {name: serve(case, mesh) for name, case in inp["train"].items()},
+               "decode_layouts": decode_layouts(inp, mesh),
                "checkpoint": checkpoint(inp, mesh),
                "compression": compression(inp)}
         torch.save(out, DIR / f"rank{rank}.pt")

@@ -204,17 +204,23 @@ def vlm_family(width, head_dim, text=512):
     return row
 
 
-def _grouped_mod_kv(k, v, n_heads: int, shd=None):
-    """``attention._expand_kv`` with the groups wrong: query head h reads
-    KV head h % KV instead of h // (H / KV)."""
-    kvh = k.shape[2]
-    if kvh in (1, n_heads):
-        return _EXPAND_KV(k, v, n_heads)
-    idx = torch.arange(n_heads, device=k.device) % kvh
-    return k[:, :, idx], v[:, :, idx]
+def _grouped_mod_kv(k, v, q, *rest):
+    """``attention._decode_mha`` with the groups wrong: query head h reads
+    KV head h % KV instead of h // (H / KV).  q's heads go in the order
+    the consecutive grouping reads them so, and the output comes back in
+    theirs, so the fault holds on the card's kernel and its plain version
+    alike."""
+    kvh, H = k.shape[2], q.shape[2]
+    if kvh in (1, H):
+        return _DECODE_MHA(k, v, q, *rest)
+    h = torch.arange(H, device=q.device)
+    slot = (h % kvh) * (H // kvh) + h // kvh  # where head h sits for the grouping
+    moved = torch.empty_like(q)
+    moved[:, :, slot] = q
+    return _DECODE_MHA(k, v, moved, *rest)[:, :, slot]
 
 
-_EXPAND_KV = attention._expand_kv
+_DECODE_MHA = attention._decode_mha
 
 
 def dense_decode_faults(model) -> dict:
@@ -222,8 +228,8 @@ def dense_decode_faults(model) -> dict:
     model's signature: the decode position one off; the newest KV entry
     dropped (every self-attention cache's entry at position pos - 1, the
     prompt's last token, hidden); the KV heads grouped h % KV in the
-    decode's attention (prefill and decode share ``_expand_kv``, so a
-    fault planted in both would cancel)."""
+    decode's attention alone (``attention._decode_mha``; the prefill
+    keeps its grouping, which wrote the cache)."""
     decode = model.decode_step
 
     def position_one_off(caches, tokens, pos):
@@ -236,7 +242,7 @@ def dense_decode_faults(model) -> dict:
         return decode(caches, tokens, pos)
 
     def grouped_mod_kv(caches, tokens, pos):
-        with mock.patch.object(attention, "_expand_kv", _grouped_mod_kv):
+        with mock.patch.object(attention, "_decode_mha", _grouped_mod_kv):
             return decode(caches, tokens, pos)
 
     return {"decode position one off": position_one_off,
