@@ -4,10 +4,12 @@
 last-token logits it keeps, and ``LM.decode_step`` through
 ``repro_torch.train.make_serve_step``), ``TrainCell`` its training step
 (``make_train_step`` with AdamW).  Both load the benchmark's weights
-(``reference.weights``) into the program's model, and make every input
-from the seed on the device.  After the window the program's state is
-freed and the reference (``reference.lm``) is run over a sample of what
-the window produced (``check``).
+into the program's model, and make every input from the seed on the
+device.  After the window the program's state is freed and the
+reference is run over a sample of what the window produced (``check``).
+The weights and the reference are the configuration's reference module
+(``cell.reference``; ``reference.lm`` unless the configuration file names
+another, ``harness.spec``).
 
 ``fault`` plants one fault in the timed path, for the tests that show the
 check catches it: ``"token"`` alters each served token where it is
@@ -28,8 +30,6 @@ import numpy as np
 import torch
 
 from reference import adamw as ref_adamw
-from reference import lm as ref_lm
-from reference import weights as W
 
 def _seed(seed: int, tag: int, index: int) -> int:
     return (int(seed) * 7_777_777 + tag * 1_000_003 + (index + 1) * 104_729 + 17) % (2 ** 63)
@@ -44,22 +44,23 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def build_model(cfg, m: dict, seed: int, device, dtype: torch.dtype):
-    """The program's model with the benchmark's weights: built empty by
-    the program, then filled a block at a time."""
+def build_model(ref, cfg, m: dict, seed: int, device, dtype: torch.dtype):
+    """The program's model with the benchmark's weights (those of the
+    reference module ``ref``): built empty by the program, then filled a
+    block at a time."""
     from repro_torch.models import lm
     from repro_torch.models.common import Init
 
     model = lm.LM(cfg, Init(None, dtype, torch.device(device))).eval()
     params = dict(model.named_parameters())
     got = {n: tuple(p.shape) for n, p in params.items()}
-    want = W.leaves(m)
+    want = ref.leaves(m)
     if got != want:
         diff = sorted(set(got.items()) ^ set(want.items()))
         raise ValueError(f"the program's parameters differ from the configuration's: {diff[:8]}")
     with torch.no_grad():
-        for b in range(W.n_blocks(m)):
-            for name, t in W.draw_block(m, seed, b, dtype, device).items():
+        for b in range(ref.n_blocks(m)):
+            for name, t in ref.draw_block(m, seed, b, dtype, device).items():
                 params[name].copy_(t)
     return model
 
@@ -110,15 +111,15 @@ class ServeCell:
         self.cell, self.seed, self.device, self.fault = cell, int(seed), device, fault
         t = cell.traffic
         self.B, self.S, self.G = t["batch"], t["prompt_len"], t["gen_tokens"]
-        self.m = cell.model
+        self.m, self.ref = cell.model, cell.reference
         self.dtype = getattr(torch, self.m["param_dtype"])
 
     def setup(self) -> None:
         from repro_torch.train import make_serve_step
         from harness.spec import port_config
 
-        self.cfg = port_config(self.cell.config)
-        self.model = build_model(self.cfg, self.m, self.seed, self.device, self.dtype)
+        self.cfg = port_config(self.cell.config, self.ref)
+        self.model = build_model(self.ref, self.cfg, self.m, self.seed, self.device, self.dtype)
         self.step = make_serve_step()
         self.kept: Dict[int, tuple] = {}
         self.kept_bytes = 0  # device bytes of the kept logits and expert choices
@@ -229,7 +230,8 @@ class ServeCell:
         at the same prompts and tokens, the exact reference taking its
         expert choices.  ``probe``, a list, gets each sequence's widest gap
         and error."""
-        ref_lm.exact()
+        ref = self.ref
+        ref.exact()
         rng = np.random.RandomState(_seed(self.seed, 2, 0) % (2 ** 32))
         n = min(self.cell.limits["sample_requests"], len(self.kept))
         if n == 0:
@@ -238,7 +240,7 @@ class ServeCell:
         m, dt, dev = self.m, self.dtype, self.device
 
         def block(i):
-            return W.draw_block(m, self.seed, i, dt, dev)
+            return ref.draw_block(m, self.seed, i, dt, dev)
 
         gaps, errs, route_gaps = [], [], []
         for r in picks:
@@ -248,17 +250,17 @@ class ServeCell:
             at = range(self.S - 1, self.S + self.G - 1)
             follow = routes if routes and self.G == 1 else None
             if control is not None:
-                own = ref_lm.Routing() if follow is not None else None
-                prog = ref_lm.logits_at(m, block, seq, at, quant=control, routing=own)
+                own = ref.Routing() if follow is not None else None
+                prog = ref.logits_at(m, block, seq, at, quant=control, routing=own)
                 served = prog.argmax(dim=-1)
                 follow = own.chosen if own is not None else None
-            routing = ref_lm.Routing(follow=follow) if follow is not None else None
-            ref = ref_lm.logits_at(m, block, seq, at, routing=routing)
+            routing = ref.Routing(follow=follow) if follow is not None else None
+            want = ref.logits_at(m, block, seq, at, routing=routing)
             route_gaps += routing.gaps if routing is not None else [0.0]
-            std = ref.std(dim=-1)
-            best = ref.max(dim=-1).values
-            gaps.append((best - ref.gather(-1, served[..., None])[..., 0]) / std)  # (B, G)
-            errs.append((prog - ref).abs().amax(dim=-1) / std)  # (B, G)
+            std = want.std(dim=-1)
+            best = want.max(dim=-1).values
+            gaps.append((best - want.gather(-1, served[..., None])[..., 0]) / std)  # (B, G)
+            errs.append((prog - want).abs().amax(dim=-1) / std)  # (B, G)
         gap, err = torch.cat(gaps), torch.cat(errs)
         if probe is not None:
             probe.append({"seq_gap": gap.amax(dim=1).tolist(), "seq_err": err.amax(dim=1).tolist()})
@@ -301,7 +303,7 @@ class TrainCell:
         t = cell.traffic
         self.B, self.S, self.n_check = t["batch"], t["seq_len"], t["check_steps"]
         self.o = t["optimizer"]
-        self.m = cell.model
+        self.m, self.ref = cell.model, cell.reference
         self.dtype = getattr(torch, self.m["param_dtype"])
         self.i = 0  # steps taken
         self.kept_bytes = 0  # what the check keeps is on the host
@@ -325,8 +327,8 @@ class TrainCell:
         from repro_torch.train import make_train_step
         from harness.spec import port_config
 
-        self.cfg = port_config(self.cell.config)
-        self.model = build_model(self.cfg, self.m, self.seed, self.device, self.dtype)
+        self.cfg = port_config(self.cell.config, self.ref)
+        self.model = build_model(self.ref, self.cfg, self.m, self.seed, self.device, self.dtype)
         self.model.train()
         self.model.requires_grad_(True)
         self.params = dict(self.model.named_parameters())
@@ -361,8 +363,9 @@ class TrainCell:
         drawn again from the seed."""
         out = {}
         with torch.no_grad():
-            for b in range(W.n_blocks(self.m)):
-                for name, p0 in W.draw_block(self.m, self.seed, b, self.dtype, self.device).items():
+            for b in range(self.ref.n_blocks(self.m)):
+                for name, p0 in self.ref.draw_block(self.m, self.seed, b, self.dtype,
+                                                    self.device).items():
                     out[name] = float(torch.linalg.vector_norm(params[name].float() - p0.float()))
         return out
 
@@ -397,14 +400,14 @@ class TrainCell:
         parameters' changes' norms (``change``), each over the reference's
         norm of that leaf or of the median leaf, whichever is larger: the
         worst leaf's and the median leaf's (``*_median``).  In its first
-        step the reference takes the program's expert choices
-        (``reference.lm.Routing``); ``route_gap`` is their widest route
+        step the reference takes the program's expert choices (the
+        reference module's ``Routing``); ``route_gap`` is their widest route
         gap.  Leaves whose reference gradient is under a thousandth of the
         median leaf's are left out (round-off alone moves them under
         AdamW).  ``control`` names a lower precision: the same numbers for
         the reference in that precision in the program's place.  ``probe``,
         a list, gets every leaf's readings."""
-        ref_lm.exact()
+        self.ref.exact()
         if control is None:
             prog = {"losses": self.losses, "grad1": self.grad1, "delta": self.delta,
                     "grad1_host": self.grad1_host, "routes": self.routes}
@@ -439,10 +442,10 @@ class TrainCell:
         on the host), each leaf's norm of the difference from it
         (``grad1_diff``); with ``keep``, its own first gradient on the host
         (``grad1_host``)."""
-        m, dev = self.m, self.device
+        m, dev, ref = self.m, self.device, self.ref
         params = {}
-        for b in range(W.n_blocks(m)):
-            for name, t in W.draw_block(m, self.seed, b, self.dtype, dev).items():
+        for b in range(ref.n_blocks(m)):
+            for name, t in ref.draw_block(m, self.seed, b, self.dtype, dev).items():
                 params[name] = t.to(torch.float32).clone().requires_grad_(True)
         opt = ref_adamw.AdamW(self.o, params)
         out = {"losses": [], "routes": [], "route_gaps": []}
@@ -450,10 +453,9 @@ class TrainCell:
             b = self.batch(i)
             routing = None
             if i == 0 and m.get("n_experts"):
-                routing = ref_lm.Routing(follow=follow or None)
+                routing = ref.Routing(follow=follow or None)
                 out["routes"], out["route_gaps"] = routing.chosen, routing.gaps
-            total, _, _ = ref_lm.loss(m, params, b["tokens"], b["labels"], quant,
-                                      routing=routing)
+            total, _, _ = ref.loss(m, params, b["tokens"], b["labels"], quant, routing=routing)
             total.backward()
             grads = {k: p.grad for k, p in params.items()}
             if i == 0:

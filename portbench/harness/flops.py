@@ -9,6 +9,13 @@ layer does top-k experts' work a token, not its capacity's.
 One multiply-add is 2 operations.  ``m`` is a configuration file's
 ``model``.  Attention takes 4 * head_dim operations per head and visible
 (query, key) pair forward (scores and values) and 10 * head_dim backward.
+
+These are the counts of the default reference, ``reference.lm``, which
+re-exports ``window_flops``, ``window_decode_bytes``,
+``attn_fwd_least_seconds`` and ``attn_bwd_least_seconds`` for the metric
+readers (``harness.spec``).  A configuration whose layers differ (a
+sliding window, a shared expert) names a reference of its own that counts
+them.
 """
 from __future__ import annotations
 
@@ -137,3 +144,21 @@ def window_decode_bytes(m: dict, traffic: dict, done: int) -> float:
     """The least bytes the decode steps of ``done`` requests move."""
     B, S, G = traffic["batch"], traffic["prompt_len"], traffic["gen_tokens"]
     return done * sum(decode_step_bytes(m, B, S + i) for i in range(G - 1))
+
+
+def attn_fwd_least_seconds(m: dict, traffic: dict, calls: int, peak: dict) -> float:
+    """The least time of ``calls`` attention forward calls of a prefill mix,
+    each over the batch's whole causal prompts at every head
+    (``least_seconds`` of their operations and ``attn_fwd_bytes``)."""
+    B, S = traffic["batch"], traffic["prompt_len"]
+    return least_seconds(calls * B * attn_flops(m, causal_pairs(0, S)),
+                         calls * attn_fwd_bytes(m, B, S), peak)
+
+
+def attn_bwd_least_seconds(m: dict, traffic: dict, calls: int, peak: dict) -> float:
+    """The least time of ``calls`` attention backward calls of a training
+    mix, each over the batch's whole causal sequences at every head
+    (``least_seconds`` of their operations and ``attn_bwd_bytes``)."""
+    B, S = traffic["batch"], traffic["seq_len"]
+    return least_seconds(calls * B * attn_flops(m, causal_pairs(0, S), backward=True),
+                         calls * attn_bwd_bytes(m, B, S), peak)

@@ -1,10 +1,12 @@
 """The attention backward's least time over the device time of the
 kernels that compute it, in percent.
 
-The least time is the larger of its operations at the bfloat16 peak
-(10 * head_dim a head and visible causal pair) and its bytes at the HBM
-bandwidth (q, k, v, o, dO and the rows' log-sum-exp read, dq, dk and dv
-written once, k and v at their KV heads), for as many calls as the
+The least time is the configuration's count of it
+(``run.flops.attn_bwd_least_seconds``).  The default reference counts it
+as ``harness.flops`` does: the larger of its operations at the bfloat16
+peak (10 * head_dim a head and visible causal pair) and its bytes at the
+HBM bandwidth (q, k, v, o, dO and the rows' log-sum-exp read, dq, dk and
+dv written once, k and v at their KV heads), for as many calls as the
 program's backward counter counted in the window.  The kernels are those
 whose names hold one of ``KERNELS``: the port's backward kernels and
 PyTorch's SDPA backward kernels."""
@@ -21,8 +23,5 @@ def read(run):
     t = run.trace.seconds_named(KERNELS)
     if t <= 0:
         return None
-    f, m = run.flops, run.m
-    B, S = run.traffic["batch"], run.traffic["seq_len"]
-    least = f.least_seconds(calls * B * f.attn_flops(m, f.causal_pairs(0, S), backward=True),
-                            calls * f.attn_bwd_bytes(m, B, S), peak)
+    least = run.flops.attn_bwd_least_seconds(run.m, run.traffic, calls, peak)
     return 100.0 * least / t

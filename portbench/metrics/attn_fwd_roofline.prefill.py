@@ -1,13 +1,15 @@
 """The attention forward's least time over the device time of the
 kernels that compute it, in percent.
 
-The least time is the larger of its operations at the bfloat16 peak
-(4 * head_dim a head and visible causal pair) and its bytes at the HBM
-bandwidth (q, k, v read and o written once, k and v at their KV heads),
-for as many calls as the program's ``flash_attention`` counter counted in
-the window.  The kernels are those whose names hold one of ``KERNELS``:
-the port's forward kernels and PyTorch's SDPA forward kernels, so the
-share reads the same work whatever computes it."""
+The least time is the configuration's count of it
+(``run.flops.attn_fwd_least_seconds``).  The default reference counts it
+as ``harness.flops`` does: the larger of its operations at the bfloat16
+peak (4 * head_dim a head and visible causal pair) and its bytes at the
+HBM bandwidth (q, k, v read and o written once, k and v at their KV
+heads), for as many calls as the program's ``flash_attention`` counter
+counted in the window.  The kernels are those whose names hold one of
+``KERNELS``: the port's forward kernels and PyTorch's SDPA forward
+kernels, so the share reads the same work whatever computes it."""
 
 KERNELS = ("fa_wgmma", "fa_kernel", "flash_fwd", "fmha_cutlassF", "sdpa_sm90_flash_fprop",
            "flash_fprop")
@@ -21,8 +23,5 @@ def read(run):
     t = run.trace.seconds_named(KERNELS)
     if t <= 0:
         return None
-    f, m = run.flops, run.m
-    B, S = run.traffic["batch"], run.traffic["prompt_len"]
-    least = f.least_seconds(calls * B * f.attn_flops(m, f.causal_pairs(0, S)),
-                            calls * f.attn_fwd_bytes(m, B, S), peak)
+    least = run.flops.attn_fwd_least_seconds(run.m, run.traffic, calls, peak)
     return 100.0 * least / t

@@ -25,6 +25,11 @@ below the reference's own cutoff.
 Layers are taken one at a time from ``get_block(i)`` (name -> tensor),
 so a forward over a served model holds one layer's weights at a time;
 attention runs over blocks of queries.
+
+This is the default reference of a configuration file (``harness.spec``):
+with the weights of ``reference.weights`` and the counts of
+``harness.flops`` it is the whole interface, and ``unsupported`` says
+which of the program's configurations it cannot compute.
 """
 from __future__ import annotations
 
@@ -36,7 +41,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from . import weights as W
+from harness.flops import (  # noqa: F401 (interface)
+    attn_bwd_least_seconds,
+    attn_fwd_least_seconds,
+    window_decode_bytes,
+    window_flops,
+)
+from reference import weights as W
+from reference.weights import draw_block, layer_block, leaves, n_blocks  # noqa: F401 (interface)
 
 NEG = -1e30
 Q_BLOCK = 512  # queries a block in the attention
@@ -47,6 +59,14 @@ def exact() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def unsupported(cfg) -> Optional[str]:
+    """None where this reference computes the program's ``ModelConfig``
+    ``cfg``; else what it does compute, the port check's refusal."""
+    if cfg.tie_embeddings or cfg.attn_kind != "full" or cfg.pos_kind != "rope" or cfg.qk_norm:
+        return "untied full attention with rope, no q/k norm"
+    return None
 
 
 def _round(x: torch.Tensor, quant: str) -> torch.Tensor:

@@ -107,7 +107,13 @@ def _scale_(t: torch.Tensor, rule: str, m: dict) -> None:
 def draw_block(m: dict, seed: int, index: int, dtype: torch.dtype,
                device) -> Dict[str, torch.Tensor]:
     """Block ``index`` of ``blocks(m)``: name -> tensor, views of one draw."""
-    _, ls = blocks(m)[index]
+    return draw_leaves(blocks(m)[index][1], m, seed, index, dtype, device)
+
+
+def draw_leaves(ls: List[Leaf], m: dict, seed: int, index: int, dtype: torch.dtype,
+                device) -> Dict[str, torch.Tensor]:
+    """The leaves ``ls`` of block ``index``: name -> tensor, views of one
+    draw (for a reference whose blocks hold other leaves)."""
     n = sum(math.prod(s) for _, s, _ in ls)
     gen = torch.Generator(device=device).manual_seed(_block_seed(seed, index))
     flat = torch.randn(n, generator=gen, dtype=dtype, device=device)

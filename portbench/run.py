@@ -9,7 +9,8 @@ state and checks a sample of what the window produced against the plain
 reference (``reference/``).  The last line of standard output is the
 result: ``correct``, ``attempted``, ``failed``, the cell's end-to-end
 metrics (``--trace 0``) or its per-layer metrics read from a profiler
-trace of the window (``--trace 1``, with ``breakdown``), ``device``, and
+trace of the window, reduced by the harness's spans and by the program's
+(``--trace 1``, with ``breakdown``), ``device``, and
 last ``checks``: each number compared with its limit.  The last lines of
 standard error give the same numbers and limits.
 
@@ -66,21 +67,28 @@ def end_to_end(name: str, win, setup_s: float):
 
 
 class Run:
-    """What a per-layer metric's reader sees."""
+    """What a per-layer metric's reader sees: the cell, its window, the
+    trace reduced by the harness's spans (``harness.trace``) and by the
+    program's (``program``, ``harness.program``; both None untraced), the
+    card's peaks, and the configuration's reference module, whose counts
+    the readers call, as ``flops``."""
 
-    def __init__(self, cell, win, trace, peak, window_peak_bytes):
-        from harness import flops
-
+    def __init__(self, cell, win, trace, peak, window_peak_bytes, program=None):
         self.cell, self.m, self.traffic = cell, cell.model, cell.traffic
         self.win, self.trace, self.peak = win, trace, peak
+        self.program = program
         self.window_peak_bytes = window_peak_bytes
-        self.flops = flops
+        self.flops = cell.reference
 
 
-def run(argv=None, *, root: Path = ROOT, device=None, fault=None, log=sys.stderr):
+def run(argv=None, *, root: Path = ROOT, device=None, fault=None, log=None, kept=None):
     """One run; returns the result (printed last on standard output), or
     None without a card.  ``device`` other than None runs on that device
-    without looking for a card (the tests)."""
+    without looking for a card (the tests).  ``log`` defaults to the
+    standard error of the moment of the call.  A dict ``kept`` receives
+    the window (``win``) and, traced, the program's reduction
+    (``program``)."""
+    log = sys.stderr if log is None else log
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -90,8 +98,8 @@ def run(argv=None, *, root: Path = ROOT, device=None, fault=None, log=sys.stderr
 
     from harness import spec
 
-    cell = spec.load_cell(args.workload, root)
     _caches(root)
+    cell = spec.load_cell(args.workload, root)
     import torch
 
     from harness.cell import CELLS, sync
@@ -118,20 +126,23 @@ def run(argv=None, *, root: Path = ROOT, device=None, fault=None, log=sys.stderr
     setup_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
-    trace = None
+    trace = program_trace = None
     if args.trace:
         from torch.profiler import ProfilerActivity, profile
 
-        from harness import spans
+        from harness import program, spans
         from harness import trace as tr
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
         with spans.installed(), profile(activities=acts) as prof:
             win = runner.window(args.seconds)
-        trace = tr.reduce(tr.raw_events(prof))
-        del prof
+        raw = tr.raw_events(prof)
+        trace, program_trace = tr.reduce(raw), program.reduce(raw)
+        del prof, raw
     else:
         win = runner.window(args.seconds)
+    if kept is not None:
+        kept.update(win=win, program=program_trace)
     window_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
     say(f"window {win.seconds:.3f} s, {win.requests} done, {win.failed} failed")
     runner.release()
@@ -147,7 +158,8 @@ def run(argv=None, *, root: Path = ROOT, device=None, fault=None, log=sys.stderr
     if args.trace:
         # the program's peak: the logits the harness keeps for the check
         # are on the card all through the window's last kept request
-        run_ = Run(cell, win, trace, spec.peaks(kind), window_peak - runner.kept_bytes)
+        run_ = Run(cell, win, trace, spec.peaks(kind), window_peak - runner.kept_bytes,
+                   program_trace)
         for m in cell.per_layer:
             value = spec.reader(m["name"], root)(run_)
             if value is not None:

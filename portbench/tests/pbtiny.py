@@ -2,9 +2,10 @@
 configurations of the program's families (a grouped-KV dense decoder with
 qkv biases, and a LayerNorm decoder of 4 top-2 experts with its vocabulary
 padded) in float32, the traffic mixes of the real cells cut down, the
-real metric readers, and ``BENCHMARK.json``'s metrics mapped onto the
-tiny cells.  Each tiny cell compares the numbers its real cell compares,
-against a limit of its own (``LIMIT``), not the real one."""
+real metric readers and reference modules, and
+``BENCHMARK.json``'s metrics mapped onto the tiny cells.  Each tiny cell
+compares the numbers its real cell compares, against a limit of its own
+(``LIMIT``), not the real one."""
 from __future__ import annotations
 
 import json
@@ -61,7 +62,9 @@ def make_root(tmp, dtype: str = "float32") -> Path:
     pb = tmp / "portbench"
     for d in ("configs", "traffic", "cells"):
         (pb / d).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(PORTBENCH / "metrics", pb / "metrics", dirs_exist_ok=True)
+    ignore = shutil.ignore_patterns("__pycache__")
+    for d in ("metrics", "reference"):
+        shutil.copytree(PORTBENCH / d, pb / d, dirs_exist_ok=True, ignore=ignore)
     for c in configs(dtype):
         (pb / "configs" / f"{c['name']}.json").write_text(json.dumps(c))
     for k, v in TRAFFIC.items():

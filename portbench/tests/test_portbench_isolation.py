@@ -24,8 +24,8 @@ def _loaded(code: str) -> set:
 
 def test_harness_loads_no_jax_nor_reference_package():
     top = _loaded("import run, harness.cell, harness.spans, harness.trace, harness.spec\n"
-                  "from harness import spec; spec.port_config(spec.load_cell("
-                  "'qwen2-7b.decode-4k').config)")
+                  "from harness import spec; c = spec.load_cell('qwen2-7b.decode-4k')\n"
+                  "spec.port_config(c.config, c.reference)")
     assert not top & FORBIDDEN, top & FORBIDDEN
     assert "repro_torch" in top
 

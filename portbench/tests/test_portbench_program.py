@@ -114,6 +114,26 @@ def test_program_reduction_by_hand():
     assert program.reduce(HARNESS + DEVICE).device == {(): pytest.approx(750 * ns)}
 
 
+def test_span_readers_by_hand():
+    """The three readers of the program's spans over ``run.program``, on
+    the made-up trace: 100 of 750 device ns launched under the decode
+    attention's span, 600 of 2,000 window ns idle inside the step's, 50 ns
+    innermost in the dispatch's; nothing without a program trace."""
+    import run as pbrun
+
+    pt = program.reduce(HARNESS + PROGRAM + DEVICE)
+    cell = spec.load_cell("qwen2-7b.decode-4k", REPO)
+    win = Window(seconds=2e-6, requests=1, gaps=[0.1])
+    want = {"decode_mha_share.decode": 100 * 100 / 750,
+            "decode_issue_idle_pct.decode": 100 * 600 / 2000,
+            "moe_dispatch_share.prefill": 100 * 50 / 750}
+    for name, value in want.items():
+        read = spec.reader(name, REPO)
+        assert read(pbrun.Run(cell, win, None, {}, 0, pt)) == pytest.approx(value), name
+        assert read(pbrun.Run(cell, win, None, {}, 0)) is None, name
+        assert read(pbrun.Run(cell, win, None, {}, 0, program.reduce(HARNESS + DEVICE))) is None
+
+
 def test_program_spans_reach_the_trace_as_host_ranges():
     import torch
     from torch.profiler import ProfilerActivity, profile

@@ -4,23 +4,16 @@
         [--sync-debug]
 
 Runs ``run.py``'s traced run (``--trace 1``: set-up, the profiled window,
-the output check, the per-layer metrics) and reduces the same trace a
-second time for the program's ``hgs:`` spans (``harness.program``).  The
-last line of standard output is one JSON object: the run's ``result``,
-``traced`` (the window's end-to-end rates, measured under the profiler),
-``program`` (the three span metrics below, None where their span did not
+the output check, the per-layer metrics, the trace reduced by the
+harness's spans and by the program's ``hgs:`` spans, ``harness.program``)
+and keeps the program's reduction.  The last line of standard output is
+one JSON object: the run's ``result``, ``traced`` (the window's
+end-to-end rates, measured under the profiler), ``program`` (the span
+metrics of ``PROGRAM``, read by their own readers in
+``portbench/metrics/`` whatever the cell, None where their span did not
 fire), ``spans`` (every program span's share of device time, operations
 launched inside it, and of the window's idle time, the main thread
 inside it) and ``counters`` (the program's counters after the window).
-
-* ``decode_mha_share.decode``: device time of the operations launched
-  with ``hgs:decode_mha`` open, over all device time.
-* ``decode_issue_idle_pct.decode``: seconds of the window when the
-  device was idle and the main thread was inside ``hgs:serve_step``,
-  over the window's seconds.
-* ``moe_dispatch_share.prefill``: device time of the operations whose
-  innermost program span is ``hgs:moe.dispatch`` (dispatch and combine,
-  the experts left out), over all device time.
 
 ``--sync-debug`` runs the window under
 ``torch.cuda.set_sync_debug_mode("warn")`` and adds ``sync_warnings``:
@@ -34,6 +27,7 @@ import collections
 import json
 import os
 import sys
+import types
 import warnings
 from pathlib import Path
 
@@ -42,6 +36,9 @@ ROOT = PORTBENCH.parent
 sys.path[:0] = [str(ROOT / "src"), str(PORTBENCH)]
 
 import run as pbrun  # noqa: E402
+
+PROGRAM = ("decode_mha_share.decode", "decode_issue_idle_pct.decode",
+           "moe_dispatch_share.prefill")
 
 
 def _pct(part: float, whole: float):
@@ -60,60 +57,46 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
 
     from harness import cell as hcell
     from harness import program, spec
-    from harness import trace as tr
 
-    got: dict = {}
+    kept: dict = {}
     syncs: collections.Counter = collections.Counter()
-    reduce = tr.reduce
-    windows = {cls: cls.window for cls in set(hcell.CELLS.values())}
+    windows = {cls: cls.window for cls in set(hcell.CELLS.values())} if args.sync_debug else {}
 
-    def reduce_both(raw, main_tid=None):
-        got["program"] = program.reduce(raw, main_tid)
-        return reduce(raw, main_tid)
-
-    def kept(window):
-        def kept_window(self, seconds):
-            if not args.sync_debug:
-                got["win"] = window(self, seconds)
-                return got["win"]
+    def warned(window):
+        def warned_window(self, seconds):
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
                 try:
-                    got["win"] = window(self, seconds)
+                    win = window(self, seconds)
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
             for w in caught:
                 if "synchroniz" in str(w.message):
                     syncs[f"{os.path.relpath(w.filename, root)}:{w.lineno}"] += 1
-            return got["win"]
+            return win
 
-        return kept_window
+        return warned_window
 
-    tr.reduce = reduce_both
     for cls, window in windows.items():
-        cls.window = kept(window)
+        cls.window = warned(window)
     try:
         result = pbrun.run(["--workload", args.workload, "--seed", str(args.seed),
                             "--seconds", str(args.seconds), "--trace", "1"],
-                           root=root, device=device)
+                           root=root, device=device, kept=kept)
     finally:
-        tr.reduce = reduce
         for cls, window in windows.items():
             cls.window = window
     if result is None:
         return 2
     cell = spec.load_cell(args.workload, root)
-    traced = {m["name"]: pbrun.end_to_end(m["name"], got["win"], 0.0)
+    traced = {m["name"]: pbrun.end_to_end(m["name"], kept["win"], 0.0)
               for m in cell.end_to_end if m["name"] != "setup_s"}
-    pt = got["program"]
+    pt = kept["program"]
     names = sorted({n for k in pt.device for n in k} | {n for k in pt.idle for n in k})
+    seen = types.SimpleNamespace(program=pt)  # all that these readers read of a run
     out = {"result": result, "traced": traced,
-           "program": {
-               "decode_mha_share.decode": _pct(pt.seconds_under("hgs:decode_mha"), pt.device_s),
-               "decode_issue_idle_pct.decode": _pct(pt.idle_under("hgs:serve_step"), pt.window_s),
-               "moe_dispatch_share.prefill": _pct(pt.seconds_under("hgs:moe.dispatch", True),
-                                                  pt.device_s)},
+           "program": {n: spec.reader(n, root)(seen) for n in PROGRAM},
            "spans": {n: {"device_pct": _pct(pt.seconds_under(n), pt.device_s),
                          "idle_pct": _pct(pt.idle_under(n), pt.window_s)} for n in names},
            "counters": program.counters()}
